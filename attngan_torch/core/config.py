@@ -1,0 +1,46 @@
+"""Configuration of the serving path.
+
+The port keeps its own copy of the JAX package's ``GanConfig``
+(attngan_tpu/core/config.py) instead of importing it: the port imports
+nothing of that package. Field names and model-shape defaults are the same,
+so a checkpoint's recorded config reads the same in both. Only the fields
+serving uses are copied; the training fields come with the GAN-step slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class GanConfig:
+    """Generator / text-encoder shapes and the serving switches."""
+
+    gf_dim: int = 32            # generator base width
+    emb_dim: int = 256          # text embedding width
+    cond_dim: int = 100         # conditioning-augmentation width
+    z_dim: int = 100            # noise width
+    seq_len: int = 5            # max caption tokens (static shape)
+    num_stages: int = 3         # 1 => 64px only; 2 => +128 attention; 3 => full
+    compute_dtype: str = "bfloat16"
+    # The JAX package leaves both kernels off by default because of
+    # measurements on a TPU v5e (its config.py:87-95, generator.py:84-88).
+    # On the GPU the hand-written kernels ARE the path: on by default, and a
+    # CUDA tensor never falls back to the plain PyTorch version.
+    fused_attention: bool = True
+    # True / "pallas" = ops/cuda_upblock.py (any dims); "packed" = the
+    # Ci=64 -> Co=32 specialisation (ops/cuda_upblock_packed.py) where the
+    # dims fit; "packed64" = the specialisation only at a 64^2 input. The
+    # names keep the JAX meaning (attngan_tpu/ops/layers.py:282-289).
+    fused_upsample: bool | str = True
+
+
+# the fields that fix the weights' shapes (a checkpoint records them)
+SHAPE_FIELDS = ("gf_dim", "emb_dim", "cond_dim", "z_dim", "seq_len",
+                "num_stages")
+
+
+def replace(cfg, **kw):
+    """Functional update helper for frozen configs."""
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,136 @@
+"""Conv / norm blocks of the generator: port of attngan_tpu/ops/layers.py.
+
+Tensors are NCHW, kept in ``torch.channels_last`` memory so that
+``x.permute(0, 2, 3, 1)`` is the zero-copy NHWC view the kernels take.
+Weights stay fp32; convolutions run in the block's compute dtype, like
+flax's ``dtype=`` (inputs and kernel cast, output in that dtype).
+
+BatchNorm follows attngan_tpu/ops/layers.py::TorchBatchNorm: train mode
+normalizes with the biased batch variance in fp32 and folds the unbiased
+one into the running average (momentum 0.1, eps 1e-5: PyTorch's own rule);
+eval mode folds the statistics into fp32 constants cast to x's dtype.
+
+The JAX package's dilated and parity UpBlock forms (layers.py:174-248) are
+XLA lowerings of the same function. Outside the kernel route the port runs
+nearest upsample + conv.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
+from attngan_torch.ops.cuda_upblock_packed import (
+    CI as PACKED_CI,
+    CO as PACKED_CO,
+    upblock_fused_eval_packed_cuda,
+)
+
+BN_MOMENTUM = 0.1   # PyTorch's (new-stat weight); flax's 0.9 retain factor
+BN_EPS = 1e-5
+
+
+def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Gated linear unit: first half * sigmoid(second half) along ``dim``."""
+    a, b = x.chunk(2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, 2H, 2W), nn.Upsample(2, 'nearest')."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """A bias-free conv run in ``dtype``."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
+                    padding=layer.padding)
+
+
+def conv3x3(in_features: int, out_features: int) -> nn.Conv2d:
+    return nn.Conv2d(in_features, out_features, 3, padding=1, bias=False)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 of (B, C) or (B, C, H, W) with TorchBatchNorm's
+    semantics and fp32 parameters and statistics."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def fold(self):
+        """Eval-mode affine constants (k, b), fp32: y = x * k + b."""
+        k = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        return k, self.bias - self.running_mean * k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            k, b = self.fold()
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return x * k.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, training=True,
+                         momentum=BN_MOMENTUM, eps=BN_EPS)
+        return y.to(x.dtype)
+
+
+class UpBlock(nn.Module):
+    """2x nearest upsample -> conv3x3(2*out) -> BN -> GLU.
+
+    ``fused_inference`` routes eval-mode forwards at >= 64^2 through a
+    kernel, with the JAX meanings (attngan_tpu/ops/layers.py:282-303):
+    True / "pallas" = K2 (ops/cuda_upblock.py); "packed" = K3
+    (ops/cuda_upblock_packed.py) where Ci=64 -> Co=32 and the dims are
+    even, else the plain chain; "packed64" = K3 only at a 64^2 input.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32,
+                 fused_inference: bool | str = False):
+        super().__init__()
+        self.out_features = out_features
+        self.dtype = dtype
+        self.fused_inference = fused_inference
+        self.conv = conv3x3(in_features, 2 * out_features)
+        self.bn = BatchNorm(2 * out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ci, h, w = x.shape[1:]
+        mode = self.fused_inference
+        packed_ok = (ci == PACKED_CI and self.out_features == PACKED_CO
+                     and h % 2 == 0 and w % 2 == 0)
+        if mode == "packed64" and not (packed_ok and h == 64):
+            mode = False
+        if mode == "packed" and not packed_ok:
+            mode = False
+        if mode and not self.training and h >= 64:
+            k, b = self.bn.fold()
+            nhwc = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
+            fn = (upblock_fused_eval_packed_cuda
+                  if mode in ("packed", "packed64") else upblock_fused_eval_cuda)
+            return fn(nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
+        x = conv(upsample_nearest_2x(x), self.conv, self.dtype)
+        return glu(self.bn(x))
+
+
+class ResBlock(nn.Module):
+    """conv3x3(2c) -> BN -> GLU -> conv3x3(c) -> BN, plus the input."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = conv3x3(features, 2 * features)
+        self.bn1 = BatchNorm(2 * features)
+        self.conv2 = conv3x3(features, features)
+        self.bn2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = glu(self.bn1(conv(x, self.conv1, self.dtype)))
+        y = self.bn2(conv(y, self.conv2, self.dtype))
+        return y + x

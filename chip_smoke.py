@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (attngan_torch) on one NVIDIA GPU.
+
+Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
+
+1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at once);
+2. hold each kernel against its plain PyTorch version on the same CUDA
+   tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
+   and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
+   also timed (device time of one call, median of 20, see ``time_ms``)
+   beside the card's bound;
+3. serve full-width 256^2 images (GanConfig defaults, random weights from a
+   seed, round-tripped through save_infer_state / load_infer_state) at
+   batch 64 in bf16, once through K2 and once through K3, with the launch
+   counters reset just before each call and read just after; then fp32 at
+   batch 2 against the port's own CPU run with the same weights and noise;
+4. throughput: img/s over 5 windows, through K2, through K3 and with the
+   kernels off, the three paths taking their windows in turns;
+   (with ``--profile``: device time by kernel and the device's idle share
+   over 3 serving calls per path, from torch.profiler;)
+5. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
+
+Any failed check raises: the script exits non-zero and prints no ok line.
+Without a GPU, or without the repository around it, it exits non-zero too.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+BATCH = 64            # serving batch of the full-width run
+CHECK_BATCH = 8       # batch of the fp32 / bf16 per-kernel checks
+SEQ_LEN, VOCAB = 5, 1000
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# bf16 tensor-core flop/s. bound_ms = max(bytes / BW, flops / PEAK).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
+L2_BYTES = 50 * 2 ** 20
+SLEEP_CYCLES = 10 ** 8   # ~50 ms at the H100's 1.98 GHz peak SM clock
+# kernel vs plain version on the same inputs. fp32: same arithmetic in
+# another summation order (TF32 off). bf16: the outputs may differ by one
+# rounding step, 2^-7 relative, plus an absolute floor for values near 0.
+TOL = {"float32": dict(atol=1e-4, rtol=0.0),
+       "bfloat16": dict(atol=1e-2, rtol=2.0 ** -7)}
+ATTN_TOL = dict(atol=1e-5, rtol=0.0)   # attention maps are fp32 either way
+IMAGE_ATOL = 1e-3   # fp32 GPU vs CPU images in [0, 1]: 3 stages of convs,
+#                     cuDNN vs CPU algorithms, errors ~1e-5 observed scale
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def fail_unless(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Median device time of one call, from CUDA events around each of
+    ``iters`` calls.
+
+    A sleep kernel holds the stream while the host enqueues every call, so
+    the events time the device's work and not the host's launch overhead
+    (the sleep is lengthened until it outlasts the enqueue). A write of
+    twice the L2 cache between calls leaves it cold, as the serving path,
+    whose activations exceed it, finds its inputs."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    cycles = SLEEP_CYCLES
+    while True:
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for _ in range(iters)]
+        held = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        held[0].record()
+        torch.cuda._sleep(cycles)
+        held[1].record()
+        t0 = time.perf_counter()
+        for start, end in events:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms < held[0].elapsed_time(held[1]):
+            return statistics.median(s.elapsed_time(e) for s, e in events)
+        cycles *= 4
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_cases(torch, dtype, batch, seed):
+    """(name, wrapper, plain, args, bound flops, gen) for every kernel at the
+    gen2 and gen3 shapes of the serving path (gf=32: attention C=32 over 5
+    words; UpBlock Ci=64 -> Co=32)."""
+    from attngan_torch.ops.attention import word_attention
+    from attngan_torch.ops.cuda_attention import word_attention_cuda
+    from attngan_torch.ops.cuda_upblock import (
+        upblock_fused_eval,
+        upblock_fused_eval_cuda,
+    )
+    from attngan_torch.ops.cuda_upblock_packed import (
+        upblock_fused_eval_packed_cuda,
+    )
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale)
+
+    cases = []
+    for gen, hw in (("gen2", 64), ("gen3", 128)):
+        images = randn(batch, hw, hw, 32).to(dtype)
+        words = randn(batch, SEQ_LEN, 32).to(dtype)
+        lengths = torch.randint(1, SEQ_LEN + 1, (batch,), generator=g,
+                                device=dev)
+        mask = (torch.arange(SEQ_LEN, device=dev)[None] < lengths[:, None]
+                ).to(torch.int32)
+        flops = 4 * batch * hw * hw * SEQ_LEN * 32
+        cases.append(("word_attention", word_attention_cuda, word_attention,
+                      (images, words, mask), flops, gen))
+        x = randn(batch, hw, hw, 64).to(dtype)
+        weight = randn(64, 64, 3, 3, scale=(9 * 64) ** -0.5)
+        bn_k = torch.rand(64, generator=g, device=dev) + 0.5
+        bn_b = randn(64, scale=0.1)
+        flops = 2 * batch * (2 * hw) ** 2 * 64 * (4 * 64)
+        for name, fn in (("upblock_fused_eval", upblock_fused_eval_cuda),
+                         ("upblock_fused_eval_packed",
+                          upblock_fused_eval_packed_cuda)):
+            cases.append((name, fn, upblock_fused_eval,
+                          (x, weight, bn_k, bn_b), flops, gen))
+    return cases
+
+
+def check_kernels(torch, card_name: str) -> dict:
+    """Phase 2. Returns per-kernel totals over gen2 + gen3 at the serving
+    batch in bf16, the serving type: ms, plain_ms, bound_ms, bound_by,
+    max_abs_err. fp32 at the serving batch is timed too (printed, not in
+    the totals): it is the CUDA-core form of the UpBlock kernels."""
+    totals = {}
+    for dtype, batch, timed in ((torch.float32, CHECK_BATCH, False),
+                                (torch.bfloat16, CHECK_BATCH, False),
+                                (torch.float32, BATCH, True),
+                                (torch.bfloat16, BATCH, True)):
+        tname = str(dtype).split(".")[-1]
+        for name, fn, plain, args, flops, gen in kernel_cases(
+                torch, dtype, batch, seed=batch):
+            before = fn.launches
+            got = fn(*args)
+            torch.cuda.synchronize()
+            fail_unless(fn.launches == before + 1,
+                        f"{name} counted {fn.launches - before} launches")
+            want = plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                fail_unless(a.shape == b.shape and a.dtype == b.dtype,
+                            f"{name} output {i}: {a.shape} {a.dtype} vs "
+                            f"{b.shape} {b.dtype}")
+                tol = ATTN_TOL if i == 1 else TOL[tname]
+                torch.testing.assert_close(a.float(), b.float(), **tol,
+                                           msg=lambda m: f"{name} {gen} "
+                                           f"{tname} B={batch}: {m}")
+                err = max(err, float((a.float() - b.float()).abs().max()))
+            line = {"phase": "kernel_check", "kernel": name, "shape": gen,
+                    "dtype": tname, "batch": batch, "max_abs_err": err}
+            if timed:
+                moved = nbytes(*args, *got)
+                peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                        else FP32_FLOPS_PER_S)
+                bound = max(moved / HBM_BYTES_PER_S, flops / peak) * 1e3
+                ms = time_ms(lambda: fn(*args))
+                plain_ms = time_ms(lambda: plain(*args))
+                line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bytes=moved, flops=flops, card=card_name)
+            if timed and dtype == torch.bfloat16:
+                t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0,
+                                                 bound_ms=0.0, max_abs_err=0.0,
+                                                 bytes_ms=0.0, flops_ms=0.0))
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += bound
+                t["bytes_ms"] += moved / HBM_BYTES_PER_S * 1e3
+                t["flops_ms"] += flops / BF16_FLOPS_PER_S * 1e3
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+            print(json.dumps(line), flush=True)
+    return totals
+
+
+def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
+    """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
+    the signal at each GLU until the images are a flat gray. Train-mode
+    forwards on random noise set the running statistics to the activations'
+    own (momentum 0.1, 40 passes: 0.9^40 = 1.5% of the init left), so that
+    eval-mode images have contrast and the comparisons see real values."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    tokens = torch.as_tensor(tokens, device="cuda")
+    lengths = torch.as_tensor(lengths, device="cuda")
+    from attngan_torch.data.dataset import word_mask
+
+    state.cuda().eval()
+    state.generator.train()
+    with torch.no_grad():
+        words, sent = state.rnn(tokens, lengths)
+        mask = word_mask(lengths, tokens.shape[1])
+        for _ in range(passes):
+            noise = torch.randn((tokens.shape[0], state.cfg.z_dim),
+                                generator=gen, device="cuda")
+            state.generator(noise, sent, words, mask, generator=gen)
+    state.eval().cpu()
+
+
+def serve(torch, card_name: str) -> dict:
+    """Phase 3: the serving path through K2 and through K3, fp32 against
+    the CPU. Returns {kernel name: launches in its serving call} and the
+    samplers for the throughput phase."""
+    import numpy as np
+
+    from attngan_torch.core.config import GanConfig, replace
+    from attngan_torch.infer.sampler import (
+        InferState,
+        Sampler,
+        load_infer_state,
+        save_infer_state,
+    )
+    from attngan_torch.ops.cuda_attention import word_attention_cuda
+    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
+    from attngan_torch.ops.cuda_upblock_packed import (
+        upblock_fused_eval_packed_cuda,
+    )
+
+    counters = {"word_attention": word_attention_cuda,
+                "upblock_fused_eval": upblock_fused_eval_cuda,
+                "upblock_fused_eval_packed": upblock_fused_eval_packed_cuda}
+    cfg = GanConfig()                       # full width, bf16, kernels on
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, VOCAB, (BATCH, SEQ_LEN))
+    lengths = rng.integers(1, SEQ_LEN + 1, BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "infer_state.pt")
+        state = InferState(cfg, VOCAB)
+        calibrate_bn(torch, state, tokens[:16], lengths[:16])
+        save_infer_state(path, state)
+        samplers = {mode: Sampler(load_infer_state(
+            path, replace(cfg, fused_upsample=mode), device="cuda"))
+            for mode in (True, "packed")}
+        samplers["plain"] = Sampler(load_infer_state(path, replace(
+            cfg, fused_attention=False, fused_upsample=False), device="cuda"))
+        cfg32 = replace(cfg, compute_dtype="float32")
+        gpu32 = Sampler(load_infer_state(path, cfg32, device="cuda"))
+        cpu32 = Sampler(load_infer_state(path, cfg32, device="cpu"),
+                        device="cpu")
+
+    launches = {}
+    want = {True: ("word_attention", "upblock_fused_eval"),
+            "packed": ("word_attention", "upblock_fused_eval_packed")}
+    for mode in want:
+        sampler = samplers[mode]
+        gen = torch.Generator("cuda").manual_seed(1)
+        sampler.generate_from_tokens(tokens, lengths, generator=gen)  # warm
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        expect = {name: 2 if name in want[mode] else 0 for name in counters}
+        fail_unless(counts == expect,
+                    f"fused_upsample={mode!r}: launches {counts}, "
+                    f"expected {expect}")
+        for name in want[mode]:
+            launches[name] = counts[name]
+        std = float(imgs.float().std())
+        fail_unless(tuple(imgs.shape) == (BATCH, 256, 256, 3),
+                    f"image shape {tuple(imgs.shape)}")
+        fail_unless(bool(torch.isfinite(imgs).all()), "non-finite images")
+        fail_unless(float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+                    "images outside [0, 1]")
+        fail_unless(std > 0.02, f"flat images (std {std})")
+        print(json.dumps({"phase": "serve", "fused_upsample": mode,
+                          "batch": BATCH, "shape": list(imgs.shape),
+                          "launches": counts,
+                          "mean": float(imgs.float().mean()), "std": std}),
+              flush=True)
+
+    # fp32 on the card (kernels, TF32 off) against the port's CPU run, on
+    # every stage and attention map
+    noise = torch.from_numpy(rng.standard_normal((2, cfg.z_dim),
+                                                 dtype=np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, cfg.cond_dim),
+                                               dtype=np.float32))
+    got = gpu32.generate_stages(tokens[:2], lengths[:2], noise, eps)
+    ref = cpu32.generate_stages(tokens[:2], lengths[:2], noise, eps)
+    pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+    print(json.dumps({"phase": "serve_fp32_vs_cpu", "batch": 2,
+                      "max_abs_err": err, "atol": IMAGE_ATOL,
+                      "final_std": float(ref[0][-1].std())}), flush=True)
+    fail_unless(err <= IMAGE_ATOL, f"fp32 GPU vs CPU images differ by {err}")
+    return launches, samplers, tokens, lengths
+
+
+def throughput(torch, samplers, tokens, lengths, card_name: str) -> None:
+    """Phase 4: img/s over 5 windows of 10 calls, per path. The paths take
+    their windows in turns, in an order that rotates each round, so that a
+    drift of the card's clock or of the host's load falls on all three."""
+    paths = (("kernels_k2", True), ("kernels_k3", "packed"),
+             ("plain", "plain"))
+    gen = torch.Generator("cuda").manual_seed(2)
+    for _, mode in paths:
+        samplers[mode].generate_from_tokens(tokens, lengths, generator=gen)
+    torch.cuda.synchronize()
+    rates = {label: [] for label, _ in paths}
+    for round_ in range(5):
+        for label, mode in paths[round_ % 3:] + paths[:round_ % 3]:
+            start = time.perf_counter()
+            for _ in range(10):
+                samplers[mode].generate_from_tokens(tokens, lengths,
+                                                    generator=gen)
+            torch.cuda.synchronize()
+            rates[label].append(10 * BATCH / (time.perf_counter() - start))
+    for label, windows in rates.items():
+        median = statistics.median(windows)
+        print(json.dumps({
+            "phase": "throughput", "path": label, "batch": BATCH,
+            "img_per_s": median, "windows": windows,
+            "spread_pct": 100 * (max(windows) - min(windows)) / median,
+            "card": card_name}), flush=True)
+
+
+def profile(torch, samplers, tokens, lengths, card_name: str) -> None:
+    """--profile: device time by kernel over 3 serving calls per path, and
+    the device's busy share of the wall time (torch.profiler, CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for label, mode in (("kernels_k3", "packed"), ("kernels_k2", True),
+                        ("plain", "plain")):
+        sampler = samplers[mode]
+        gen = torch.Generator("cuda").manual_seed(3)
+        sampler.generate_from_tokens(tokens, lengths, generator=gen)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(3):
+                sampler.generate_from_tokens(tokens, lengths, generator=gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3 / 3
+        events = prof.key_averages()
+        kernels = [(e.key, e.self_device_time_total / 3e3, e.count / 3)
+                   for e in events if e.device_type == DeviceType.CUDA]
+        # the device time of the kernels each PyTorch operator launched:
+        # names the elementwise kernels, whose own names are generic
+        ops = [(e.key, e.self_device_time_total / 3e3, e.count / 3)
+               for e in events if e.device_type == DeviceType.CPU
+               and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in kernels)
+        kernels.sort(key=lambda k: -k[1])
+        ops.sort(key=lambda k: -k[1])
+        print(json.dumps({
+            "phase": "profile", "path": label, "batch": BATCH,
+            "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
+            "idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "kernels_per_call": sum(n for _, _, n in kernels),
+            "top": [[name[:60], ms, n] for name, ms, n in kernels[:12]],
+            "top_ops": [[name[:40], ms, n] for name, ms, n in ops[:12]],
+            "card": card_name}), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    # the port lives beside this script; without it the import fails
+    from attngan_torch.ops import _build
+
+    card_name = card()
+    print(card_name, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    for name, (path, seconds, log) in built.items():
+        usage = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(json.dumps({"phase": "build", "library": os.path.basename(path),
+                          "nvcc_s": seconds, "ptxas": usage}), flush=True)
+    print(json.dumps({"phase": "build", "total_s": time.perf_counter() - t0}),
+          flush=True)
+
+    totals = check_kernels(torch, card_name)
+    launches, samplers, tokens, lengths = serve(torch, card_name)
+    throughput(torch, samplers, tokens, lengths, card_name)
+    if "--profile" in sys.argv[1:]:
+        profile(torch, samplers, tokens, lengths, card_name)
+
+    replaces = {
+        "word_attention": ("attngan_torch/csrc/word_attention.cu",
+                           "attngan_tpu/ops/pallas_attention.py:51"),
+        "upblock_fused_eval": ("attngan_torch/csrc/upblock.cu",
+                               "attngan_tpu/ops/pallas_upblock.py:128"),
+        "upblock_fused_eval_packed": (
+            "attngan_torch/csrc/upblock.cu",
+            "attngan_tpu/ops/pallas_upblock_packed.py:124"),
+    }
+    kernels = []
+    for name, (source, tpu) in replaces.items():
+        t = totals[name]
+        fail_unless(launches.get(name, 0) > 0, f"{name} never launched")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["bytes_ms"] >= t["flops_ms"]
+            else "operations",
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_name, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
