@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX ``InferState`` -> the port's modules.
+"""Weight bridge: a JAX ``InferState`` or ``DamsmState`` -> the port.
 
 The input is a flat ``{path: np.ndarray}`` dict keyed by the flax path
 joined with "/" under the three subtrees sampling touches, e.g.
@@ -19,6 +19,22 @@ flattened JAX InferState holds). Layouts:
 
 Coverage is strict: every JAX leaf is consumed exactly once and every port
 parameter and buffer is filled; a missing or extra key raises.
+
+A flattened ``DamsmState`` (the DAMSM pretraining state) is read by
+``load_damsm_flat`` the same way, under the subtrees
+``rnn_params`` (the BiLSTM, as above), ``cnn_head_params``
+(``emb_features/kernel`` (1, 1, F, D) -> the 1x1 conv's (D, F, 1, 1);
+``emb_cnn_code`` Dense -> Linear), ``cnn_trunk_params/trunk/...`` (conv
+kernels HWIO -> OIHW, BN scale / bias -> weight / bias, a flax module path
+``Mixed_5b/branch1x1/conv`` -> ``Mixed_5b.branch1x1.conv``), ``cnn_stats/
+trunk/...`` (mean / var -> running_mean / running_var), ``opt_state`` and
+``step``. optax's Adam state flattens with sequence indices as numbers and
+named fields by name: ``opt_state/0/count``, ``opt_state/0/mu/rnn/w_ih_fwd``,
+``opt_state/0/nu/cnn_heads/emb_cnn_code/bias``; mu and nu take their
+parameter's layout and become torch Adam's ``exp_avg`` / ``exp_avg_sq``,
+the count its ``step``. The state's PRNG key has no counterpart (the port
+draws dropout from a torch.Generator) and is not part of the input.
+tools/convert_torch_weights.py is the trunk mapping in the other direction.
 """
 
 from __future__ import annotations
@@ -126,3 +142,139 @@ def load_flat(flat: Mapping[str, np.ndarray], rnn: torch.nn.Module,
     sd = convert_flat(flat)
     rnn.load_state_dict(sd["rnn"], strict=True)
     generator.load_state_dict(sd["generator"], strict=True)
+
+
+# ---------------------------------------------------------------- DamsmState
+
+_DAMSM_TREES = ("rnn_params", "cnn_head_params", "cnn_trunk_params",
+                "cnn_stats", "opt_state", "step")
+_RNN_KEYS = {"embedding": "embedding.weight"}
+for _d, _sfx in (("fwd", ""), ("bwd", "_reverse")):
+    _RNN_KEYS.update({f"w_ih_{_d}": f"lstm.weight_ih_l0{_sfx}",
+                      f"w_hh_{_d}": f"lstm.weight_hh_l0{_sfx}",
+                      f"b_{_d}": f"lstm.bias_ih_l0{_sfx}"})
+_HEAD_KEYS = {"emb_features/kernel": "emb_features.weight",
+              "emb_cnn_code/kernel": "emb_cnn_code.weight",
+              "emb_cnn_code/bias": "emb_cnn_code.bias"}
+_TRUNK_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _layout(a: np.ndarray, transpose: bool = True) -> torch.Tensor:
+    """A flax leaf in the torch layout: HWIO -> OIHW, (in, out) -> (out, in)."""
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1).contiguous()
+    if t.dim() == 2 and transpose:
+        return t.t().contiguous()
+    return t
+
+
+def _rnn_key(leaf: str) -> str:
+    if leaf not in _RNN_KEYS:
+        raise KeyError(f"unexpected BiLSTM leaf {leaf!r}")
+    return _RNN_KEYS[leaf]
+
+
+def _head_key(path: str) -> str:
+    if path not in _HEAD_KEYS:
+        raise KeyError(f"unexpected head leaf {path!r}")
+    return _HEAD_KEYS[path]
+
+
+def _module_key(path: str, leaves: Mapping[str, str]) -> str:
+    scope, _, leaf = path.rpartition("/")
+    if not scope or leaf not in leaves:
+        raise KeyError(f"unexpected conv / BN leaf {path!r}")
+    return f"{scope.replace('/', '.')}.{leaves[leaf]}"
+
+
+def block_state_dict(params: Mapping[str, np.ndarray],
+                     stats: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The flax variables of a trunk or of one of its blocks, each tree
+    flattened with "/", -> the matching port module's state_dict."""
+    sd = {_module_key(k, _TRUNK_LEAVES): _layout(v) for k, v in params.items()}
+    for k, v in stats.items():
+        sd[_module_key(k, _STAT_LEAVES)] = _layout(v)
+    return sd
+
+
+def convert_damsm_flat(flat: Mapping[str, np.ndarray]) -> dict:
+    """Flat JAX DamsmState -> {"rnn": state_dict, "cnn": state_dict,
+    "adam": {port parameter name: {"exp_avg", "exp_avg_sq"}}, "count",
+    "step"}; port parameter names as DamsmState.trainable() gives them."""
+    rnn, cnn, adam, trunk, stats = {}, {}, {}, {}, {}
+    count = step = None
+
+    def put(sd, key, value, src):
+        if key in sd:
+            raise KeyError(f"{src!r} maps onto {key!r} twice")
+        sd[key] = value
+
+    for key, value in flat.items():
+        tree, _, path = key.partition("/")
+        if tree not in _DAMSM_TREES:
+            raise KeyError(f"unexpected key {key!r}: not under {_DAMSM_TREES}")
+        if tree == "step":
+            step = int(np.asarray(value))
+        elif tree == "rnn_params":
+            put(rnn, _rnn_key(path), _layout(value, path != "embedding"), key)
+        elif tree == "cnn_head_params":
+            put(cnn, _head_key(path), _layout(value), key)
+        elif tree in ("cnn_trunk_params", "cnn_stats"):
+            if not path.startswith("trunk/"):
+                raise KeyError(f"unexpected trunk leaf {key!r}")
+            (trunk if tree == "cnn_trunk_params" else stats)[path] = value
+        elif path == "0/count":
+            count = int(np.asarray(value))
+        else:
+            idx, moment, sub, rest = (path.split("/", 3) + ["", "", ""])[:4]
+            if idx != "0" or moment not in ("mu", "nu") or not rest:
+                raise KeyError(f"unexpected optimizer leaf {key!r}")
+            if sub == "rnn":
+                name = "rnn." + _rnn_key(rest)
+                value = _layout(value, rest != "embedding")
+            elif sub == "cnn_heads":
+                name = "cnn." + _head_key(rest)
+                value = _layout(value)
+            else:
+                raise KeyError(f"unexpected optimizer leaf {key!r}")
+            slot = adam.setdefault(name, {})
+            put(slot, "exp_avg" if moment == "mu" else "exp_avg_sq", value,
+                key)
+    for k, v in block_state_dict(trunk, stats).items():
+        put(cnn, k, v, k)
+    for name, b in list(rnn.items()):        # the JAX BiLSTM has one bias
+        if ".bias_ih_" in name:
+            rnn[name.replace("bias_ih", "bias_hh")] = torch.zeros_like(b)
+    if count is None or step is None:
+        raise KeyError("missing opt_state/0/count or step")
+    return {"rnn": rnn, "cnn": cnn, "adam": adam, "count": count,
+            "step": step}
+
+
+def load_damsm_flat(flat: Mapping[str, np.ndarray], state) -> None:
+    """Fill a ``train.damsm_trainer.DamsmState`` in place (weights, trunk
+    statistics, Adam moments and count, step); raises on any key missing or
+    left over on either side, or a shape that disagrees."""
+    sd = convert_damsm_flat(flat)
+    state.rnn.load_state_dict(sd["rnn"], strict=True)
+    state.cnn.load_state_dict(sd["cnn"], strict=True)
+    params = dict(state.trainable())
+    if set(sd["adam"]) != set(params):
+        raise KeyError(f"Adam state does not cover the trainable parameters:"
+                       f" missing {sorted(set(params) - set(sd['adam']))}, "
+                       f"extra {sorted(set(sd['adam']) - set(params))}")
+    for name, p in params.items():
+        slot = sd["adam"][name]
+        if set(slot) != {"exp_avg", "exp_avg_sq"}:
+            raise KeyError(f"Adam state of {name} lacks mu or nu")
+        for k, v in slot.items():
+            if v.shape != p.shape:
+                raise RuntimeError(f"Adam {k} of {name}: {tuple(v.shape)} vs "
+                                   f"{tuple(p.shape)}")
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(sd["count"])),
+            **{k: v.to(p.device) for k, v in slot.items()}}
+    state.step = sd["step"]
+    state.frozen_trunk = None    # the trunk changed: refold at first use

@@ -1,16 +1,46 @@
-"""Configuration of the serving path.
+"""Configuration of the serving path and of DAMSM pretraining.
 
-The port keeps its own copy of the JAX package's ``GanConfig``
-(attngan_tpu/core/config.py) instead of importing it: the port imports
-nothing of that package. Field names and model-shape defaults are the same,
-so a checkpoint's recorded config reads the same in both. Only the fields
-serving uses are copied; the training fields come with the GAN-step slice.
+The port keeps its own copies of the JAX package's ``GanConfig`` and
+``DamsmConfig`` (attngan_tpu/core/config.py) instead of importing them: the
+port imports nothing of that package. Field names and model-shape defaults
+are the same, so a checkpoint's recorded config reads the same in both.
+Only the fields the port uses are copied: ``GanConfig``'s training fields
+come with the GAN-step slice, and ``DamsmConfig``'s feature cache, int8
+trunk, train-mode trunk BN and superbatch each come with their own slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class DamsmConfig:
+    """DAMSM pretraining (attngan_tpu/core/config.py::DamsmConfig)."""
+
+    emb_dim: int = 256          # joint word / region embedding width
+    text_emb_dim: int = 300     # nn.Embedding width
+    dropout: float = 0.5        # embedding dropout
+    batch_size: int = 64
+    lr: float = 0.002
+    betas: Tuple[float, float] = (0.5, 0.999)
+    rnn_grad_clip: float = 0.25  # gradient-norm clip of the BiLSTM only
+    epochs: int = 30
+    # DAMSM attention / loss temperatures
+    gamma1: float = 4.0
+    gamma2: float = 5.0
+    gamma3: float = 10.0
+    wlambda: float = 5.0
+    slambda: float = 5.0
+    compute_dtype: str = "bfloat16"  # the frozen trunk's compute dtype
+    image_encoder: str = "inception_v3"  # or "tiny" (tests, cheap runs)
+    # The JAX package picks its Pallas similarity kernel by backend
+    # (attngan_tpu/losses/damsm.py:96-97). In the port the hand-written
+    # kernels (ops/cuda_damsm.py) are the words loss on the GPU; False runs
+    # the plain vectorised form, differentiated by autograd.
+    fused_similarity: bool = True
 
 
 @dataclass(frozen=True)

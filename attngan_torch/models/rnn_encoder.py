@@ -4,11 +4,16 @@ Embedding(vocab, 300) -> dropout(0.5) -> one bidirectional LSTM layer over
 the packed (ragged) captions. Word embeddings are the per-step outputs, zero
 at padded steps; the sentence embedding is the concat of each direction's
 final hidden state. Runs in fp32 (the JAX module has no compute dtype).
+
+Train-mode dropout draws its mask from the ``torch.Generator`` the caller
+passes (the JAX module takes an explicit "dropout" key); eval mode is the
+identity. The JAX module has one bias per direction: ``bias_hh`` stays zero
+and takes no gradient, so that the trained bias is ``bias_ih`` alone.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,14 +32,22 @@ class BiLSTMEncoder(nn.Module):
             raise ValueError(f"hidden_dim must be even; got {hidden_dim}")
         self.embedding = nn.Embedding(vocab_size, emb_dim)
         nn.init.uniform_(self.embedding.weight, -0.1, 0.1)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.lstm = nn.LSTM(emb_dim, hidden_dim // 2, batch_first=True,
                             bidirectional=True)
+        for bias in (self.lstm.bias_hh_l0, self.lstm.bias_hh_l0_reverse):
+            nn.init.zeros_(bias)
+            bias.requires_grad_(False)
 
-    def forward(self, captions: torch.Tensor,
-                lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, captions: torch.Tensor, lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         seq_len = captions.shape[1]
-        x = self.dropout(self.embedding(captions.long()))
+        x = self.embedding(captions.long())
+        if self.training and self.dropout > 0:
+            keep = torch.rand(x.shape, generator=generator, device=x.device)
+            x = torch.where(keep >= self.dropout, x / (1.0 - self.dropout),
+                            torch.zeros_like(x))
         # packing needs lengths >= 1 on the host; an empty caption gets
         # zero outputs and a zero sentence embedding, as the JAX scan gives
         lengths = lengths.to("cpu", torch.int64)

@@ -1,6 +1,8 @@
-"""Generator word attention, plain PyTorch (the plain version of K1).
+"""Attention primitives, plain PyTorch.
 
-Port of attngan_tpu/ops/attention.py::word_attention. Layouts are the JAX
+``word_attention`` is the plain version of K1 (generator word attention);
+``damsm_attention`` is the DAMSM word-region attention (AttnGAN Eq. 7-9).
+Port of attngan_tpu/ops/attention.py. Layouts are the JAX
 package's: images (B, H, W, C), words (B, L, C), mask (B, L), attention
 maps (B, L, H, W). The products accumulate in fp32 whatever the input type
 (JAX's ``preferred_element_type=float32``), and the attention is rounded to
@@ -11,7 +13,7 @@ arithmetic of the CUDA kernel (ops/cuda_attention.py) step for step.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,3 +40,27 @@ def word_attention(
                            words.float()).to(images.dtype)
     attn_maps = attn.transpose(1, 2).reshape(b, -1, h, w)        # (B, L, H, W)
     return context.reshape(b, h, w, c), attn_maps
+
+
+def damsm_attention(
+    query: torch.Tensor,            # (B, L, D) word embeddings
+    context: torch.Tensor,          # (B, R, D) image region features
+    gamma1: float = 4.0,
+    mask: Optional[torch.Tensor] = None,  # (B, L) 1 = real word; None = all
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Words attend over regions: (weighted (B, L, D), attn (B, L, R)).
+
+    Softmax #1 normalizes over the words of each region (scores scaled by
+    1/sqrt(D), padded words filled with NEG_INF); the transposed result is
+    sharpened by gamma1 and softmax #2 normalizes over the regions of each
+    word; the weighted context mixes the regions by the second attention."""
+    d = query.shape[-1]
+    scores = torch.einsum("brd,bld->brl", context.float(),
+                          query.float()) * (1.0 / math.sqrt(d))
+    if mask is not None:
+        scores = scores.masked_fill(mask[:, None, :] == 0, NEG_INF)
+    attn = torch.softmax(scores, dim=-1)                         # over words
+    attn = torch.softmax(attn.transpose(1, 2) * gamma1, dim=-1)  # over regions
+    weighted = torch.einsum("blr,brd->bld", attn.to(context.dtype).float(),
+                            context.float()).to(query.dtype)
+    return weighted, attn

@@ -57,8 +57,9 @@ class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of (B, C) or (B, C, H, W) with TorchBatchNorm's
     semantics and fp32 parameters and statistics."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -66,7 +67,7 @@ class BatchNorm(nn.Module):
 
     def fold(self):
         """Eval-mode affine constants (k, b), fp32: y = x * k + b."""
-        k = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        k = self.weight * torch.rsqrt(self.running_var + self.eps)
         return k, self.bias - self.running_mean * k
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +77,7 @@ class BatchNorm(nn.Module):
             return x * k.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, training=True,
-                         momentum=BN_MOMENTUM, eps=BN_EPS)
+                         momentum=BN_MOMENTUM, eps=self.eps)
         return y.to(x.dtype)
 
 

@@ -8,7 +8,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
    and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
    also timed (device time of one call, median of 20, see ``time_ms``)
-   beside the card's bound;
+   beside the card's bound; then the DAMSM similarity (K4) and its backward
+   (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
+   square at batch 64, 192 x 192, the sharded shape 16 x 64, and scores of
+   ~1e3 at batch 64, timed beside their bound and plain versions;
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
@@ -16,9 +19,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    batch 2 against the port's own CPU run with the same weights and noise;
 4. throughput: img/s over 5 windows, through K2, through K3 and with the
    kernels off, the three paths taking their windows in turns;
-   (with ``--profile``: device time by kernel and the device's idle share
-   over 3 serving calls per path, from torch.profiler;)
-5. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
+   bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
+   at batch 64 and one at batch 192, each with the launch counters reset
+   just before and read just after; 20 steps on one repeated batch, whose
+   loss must fall; the fp32 step at batch 4 against the port's CPU run;
+   steps/s with the kernels and with the plain words loss, in turns;
+   (with ``--profile``: device time by kernel and operator, the device's
+   idle share and the host's time in the CUDA runtime over 3 serving calls
+   per path and 3 training steps, from torch.profiler;)
+6. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no ok line.
@@ -53,6 +63,22 @@ TOL = {"float32": dict(atol=1e-4, rtol=0.0),
 ATTN_TOL = dict(atol=1e-5, rtol=0.0)   # attention maps are fp32 either way
 IMAGE_ATOL = 1e-3   # fp32 GPU vs CPU images in [0, 1]: 3 stages of convs,
 #                     cuDNN vs CPU algorithms, errors ~1e-5 observed scale
+# DAMSM similarity at full width (DamsmConfig, DataConfig.max_seqlen, the
+# 17x17 regions of Inception's Mixed_6e)
+DAMSM_BATCH, DAMSM_BIG = 64, 192
+DAMSM_SEQ, DAMSM_REGIONS, DAMSM_DIM = 8, 289, 256
+# kernel vs plain version, both fp32 (TF32 off): sims to 1e-4 relative and
+# 1e-5 absolute; gradients to 1e-3 relative plus 1e-5 of the largest entry
+# (the kernel forms the region-softmax row term as d_v.v, the plain version
+# as sum_r d_a2 a2; both sum over up to 192 texts and 289 regions in other
+# orders). Scores of ~1e3: 5e-3 / 5e-4, as tests/test_pallas.py allows.
+SIMS_TOL = dict(rtol=1e-4, atol=1e-5)
+EXTREME_TOL = dict(rtol=5e-3, atol=5e-4)
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-3, 1e-5
+# fp32 pretrain step on the card vs the CPU: loss parts and BiLSTM gradient
+# norm to 1e-3 relative, gradients to 1e-3 relative plus 1e-3 of the
+# largest entry: a 94-conv trunk (cuDNN vs CPU algorithms) feeds the loss
+STEP_RTOL, STEP_GRAD_ATOL_SHARE = 1e-3, 1e-3
 
 
 def card() -> str:
@@ -74,16 +100,20 @@ def time_ms(fn, iters: int = 20) -> float:
 
     A sleep kernel holds the stream while the host enqueues every call, so
     the events time the device's work and not the host's launch overhead
-    (the sleep is lengthened until it outlasts the enqueue). A write of
-    twice the L2 cache between calls leaves it cold, as the serving path,
-    whose activations exceed it, finds its inputs."""
+    (the sleep is lengthened until it outlasts the enqueue). A function of
+    many small kernels (the plain versions) can fill the device's launch
+    queue before the sleep ends; the host then waits on the queue, the
+    device never waits on the host, and the events are device time all
+    the same: after the sleep has been lengthened twice, they are taken as
+    they are. A write of twice the L2 cache between calls leaves it cold,
+    as the serving path, whose activations exceed it, finds its inputs."""
     import torch
 
     for _ in range(3):
         fn()
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     cycles = SLEEP_CYCLES
-    while True:
+    for attempt in range(3):
         events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
                   for _ in range(iters)]
         held = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -99,7 +129,7 @@ def time_ms(fn, iters: int = 20) -> float:
             end.record()
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        if enqueue_ms < held[0].elapsed_time(held[1]):
+        if enqueue_ms < held[0].elapsed_time(held[1]) or attempt == 2:
             return statistics.median(s.elapsed_time(e) for s, e in events)
         cycles *= 4
 
@@ -208,6 +238,261 @@ def check_kernels(torch, card_name: str) -> dict:
     return totals
 
 
+def damsm_inputs(torch, gen, bi, bt, extreme=False):
+    dev = torch.device("cuda")
+    img = torch.randn(bi, DAMSM_REGIONS, DAMSM_DIM, generator=gen, device=dev)
+    words = torch.randn(bt, DAMSM_SEQ, DAMSM_DIM, generator=gen, device=dev)
+    if extreme:               # text 0's scores ~ +-1e3, the others' O(1)
+        words[0] *= 250.0
+    lengths = torch.randint(1, DAMSM_SEQ + 1, (bt,), generator=gen,
+                            device=dev)
+    mask = (torch.arange(DAMSM_SEQ, device=dev)[None] < lengths[:, None]
+            ).to(torch.int32)
+    g = torch.randn(bi, bt, generator=gen, device=dev)
+    return img, words, mask, g
+
+
+def check_damsm_kernels(torch, card_name: str) -> dict:
+    """Phase 2, DAMSM: K4 and the backward against their plain versions in
+    fp32 at full width; timed at 64 x 64 (K4, K5), 192 x 192 (K6 on the
+    B=192 step) and 16 x 64 (K6 on a data-parallel shard's rows). Returns
+    per kernel name: ms, plain_ms, bound_ms, bytes_ms, flops_ms,
+    max_abs_err at the shapes of the pretrain step."""
+    from attngan_torch.ops.cuda_damsm import (
+        damsm_similarity,
+        damsm_similarity_bwd_square,
+        damsm_similarity_bwd_tiled,
+    )
+    from attngan_torch.ops.damsm_similarity import (
+        similarity_bwd_plain,
+        similarity_plain,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    totals = {}
+    pair_flops = 2 * DAMSM_SEQ * DAMSM_DIM * DAMSM_REGIONS   # one product
+    # the shape each kernel meets on the pretrain step, for the totals
+    report_at = {"damsm_similarity": "square64",
+                 "damsm_similarity_bwd_square": "square64",
+                 "damsm_similarity_bwd_tiled": "big192"}
+    for label, bi, bt, extreme in (
+            ("square64", DAMSM_BATCH, DAMSM_BATCH, False),
+            ("big192", DAMSM_BIG, DAMSM_BIG, False),
+            ("rect16x64", 16, DAMSM_BATCH, False),
+            ("extreme64", DAMSM_BATCH, DAMSM_BATCH, True)):
+        img, words, mask, g = damsm_inputs(torch, gen, bi, bt, extreme)
+        square = bi == bt <= 128
+        bwd = damsm_similarity_bwd_square if square else \
+            damsm_similarity_bwd_tiled
+        bwd_name = ("damsm_similarity_bwd_square" if square
+                    else "damsm_similarity_bwd_tiled")
+        before = (damsm_similarity.launches, bwd.launches)
+        sims = damsm_similarity(img, words, mask)
+        grads = bwd(img, words, mask, g)
+        torch.cuda.synchronize()
+        fail_unless((damsm_similarity.launches, bwd.launches)
+                    == (before[0] + 1, before[1] + 2),
+                    f"{label}: launches {before} -> "
+                    f"{(damsm_similarity.launches, bwd.launches)}")
+        want = similarity_plain(img, words, mask)
+        want_grads = similarity_bwd_plain(img, words, mask, g)
+        torch.testing.assert_close(
+            sims, want, **(EXTREME_TOL if extreme else SIMS_TOL),
+            msg=lambda m: f"damsm_similarity {label}: {m}")
+        for got, ref in zip(grads, want_grads):
+            tol = EXTREME_TOL if extreme else dict(
+                rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * float(ref.abs().max()))
+            torch.testing.assert_close(
+                got, ref, **tol, msg=lambda m: f"{bwd_name} {label}: {m}")
+        errs = {"damsm_similarity": float((sims - want).abs().max()),
+                bwd_name: max(float((a - b).abs().max())
+                              for a, b in zip(grads, want_grads))}
+        for name, err in errs.items():
+            line = {"phase": "kernel_check", "kernel": name, "shape": label,
+                    "dtype": "float32", "bi": bi, "bt": bt,
+                    "max_abs_err": err}
+            if not extreme:
+                if name == "damsm_similarity":
+                    fn = lambda: damsm_similarity(img, words, mask)
+                    plain = lambda: similarity_plain(img, words, mask)
+                    moved = nbytes(img, words, mask, sims)
+                    flops = 2 * pair_flops * bi * bt     # two products
+                else:
+                    fn = lambda: bwd(img, words, mask, g)
+                    plain = lambda: similarity_bwd_plain(img, words, mask, g)
+                    moved = nbytes(img, words, mask, g, *grads)
+                    flops = 6 * pair_flops * bi * bt     # recompute + four
+                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+                flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+                line.update(ms=time_ms(fn), plain_ms=time_ms(plain),
+                            bound_ms=max(bytes_ms, flops_ms), bytes=moved,
+                            flops=flops, card=card_name)
+                if report_at[name] == label:
+                    totals[name] = dict(line, bytes_ms=bytes_ms,
+                                        flops_ms=flops_ms)
+            t = totals.setdefault(name, {})
+            t["max_abs_err"] = max(t.get("max_abs_err", 0.0), err)
+            print(json.dumps(line), flush=True)
+    return totals
+
+
+def damsm_batch(torch, rng, batch: int) -> dict:
+    """A pretraining batch made from ``rng``: random captions, 256^2
+    images in [-1, 1] on the card; the lengths stay on the host, where
+    the BiLSTM's packing reads them."""
+    return {
+        "tokens": torch.as_tensor(rng.integers(0, VOCAB, (batch, DAMSM_SEQ)),
+                                  device="cuda"),
+        "lengths": torch.as_tensor(rng.integers(1, DAMSM_SEQ + 1, batch)),
+        "class_ids": torch.as_tensor(rng.integers(0, 50, batch),
+                                     device="cuda"),
+        "img256": torch.as_tensor(rng.uniform(-1, 1, (batch, 256, 256, 3)),
+                                  dtype=torch.float32, device="cuda")}
+
+
+def kernel_counters() -> dict:
+    """{kernel name: its wrapper}, whose ``launches`` the paths read."""
+    from attngan_torch.ops.cuda_attention import word_attention_cuda
+    from attngan_torch.ops.cuda_damsm import (
+        damsm_similarity,
+        damsm_similarity_bwd_square,
+        damsm_similarity_bwd_tiled,
+    )
+    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
+    from attngan_torch.ops.cuda_upblock_packed import (
+        upblock_fused_eval_packed_cuda,
+    )
+
+    return {"word_attention": word_attention_cuda,
+            "upblock_fused_eval": upblock_fused_eval_cuda,
+            "upblock_fused_eval_packed": upblock_fused_eval_packed_cuda,
+            "damsm_similarity": damsm_similarity,
+            "damsm_similarity_bwd_square": damsm_similarity_bwd_square,
+            "damsm_similarity_bwd_tiled": damsm_similarity_bwd_tiled}
+
+
+def pretrain(torch, card_name: str):
+    """Phase 5: the full-width pretrain step at batch 64 and 192 with exact
+    launch counts, a falling loss over 20 steps, fp32 against the CPU.
+    Returns ({kernel name: launches in its step}, trainer, state, batch)."""
+    import numpy as np
+
+    from attngan_torch.core.config import DamsmConfig
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    counters = kernel_counters()
+    rng = np.random.default_rng(5)
+    trainer = DamsmTrainer(DamsmConfig(), VOCAB, DAMSM_SEQ)
+    state = trainer.init_state(seed=0)
+    batches = {b: damsm_batch(torch, rng, b) for b in (DAMSM_BATCH,
+                                                       DAMSM_BIG)}
+    launches = {}
+    expect = {DAMSM_BATCH: {"damsm_similarity": 1,
+                            "damsm_similarity_bwd_square": 2},
+              DAMSM_BIG: {"damsm_similarity": 1,
+                          "damsm_similarity_bwd_tiled": 2}}
+    for b, want in expect.items():
+        trainer.train_step(state, batches[b])                      # warm
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        state, m = trainer.train_step(state, batches[b])
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        full = {name: want.get(name, 0) for name in counters}
+        fail_unless(counts == full, f"pretrain step at batch {b}: launches "
+                    f"{counts}, expected {full}")
+        metrics = {k: float(v) for k, v in m.items()}
+        fail_unless(all(np.isfinite(v) for v in metrics.values()),
+                    f"non-finite metrics {metrics}")
+        launches.update(want)
+        print(json.dumps({"phase": "pretrain_step", "batch": b,
+                          "launches": counts, **metrics}), flush=True)
+
+    losses = []
+    for _ in range(20):
+        state, m = trainer.train_step(state, batches[DAMSM_BATCH])
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    print(json.dumps({"phase": "pretrain_loss", "batch": DAMSM_BATCH,
+                      "steps": len(losses), "losses": losses}), flush=True)
+    fail_unless(all(np.isfinite(losses)), "non-finite loss")
+    fail_unless(np.mean(losses[-3:]) < np.mean(losses[:3]),
+                f"loss does not fall: {losses[:3]} -> {losses[-3:]}")
+    step_fp32_vs_cpu(torch, rng)
+    return launches, trainer, state, batches[DAMSM_BATCH]
+
+
+def step_fp32_vs_cpu(torch, rng) -> None:
+    """Two fp32 steps at batch 4 (dropout 0) on the card and on the CPU from
+    the same seeded weights: loss parts, BiLSTM gradient norm, and the
+    first step's clipped gradients of every trainable parameter."""
+    from attngan_torch.core.config import DamsmConfig
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    cfg = DamsmConfig(compute_dtype="", dropout=0.0)
+    batch = {k: v.cpu() for k, v in damsm_batch(torch, rng, 4).items()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = DamsmTrainer(cfg, VOCAB, DAMSM_SEQ, device=dev)
+        state = trainer.init_state(seed=7)
+        metrics = []
+        for step in range(2):
+            state, m = trainer.train_step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if step == 0:
+                grads = [p.grad.cpu().clone() for _, p in state.trainable()]
+        runs[dev] = metrics, grads
+    metric_err = max(abs(a[k] - b[k]) / abs(b[k])
+                     for a, b in zip(runs["cuda"][0], runs["cpu"][0])
+                     for k in b)
+    grad_err = 0.0
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        grad_err = max(grad_err, float((a - b).abs().max())
+                       / float(b.abs().max()))
+        torch.testing.assert_close(
+            a, b, rtol=STEP_RTOL,
+            atol=STEP_GRAD_ATOL_SHARE * float(b.abs().max()))
+    print(json.dumps({"phase": "pretrain_fp32_vs_cpu", "batch": 4,
+                      "metrics_gpu": runs["cuda"][0],
+                      "metrics_cpu": runs["cpu"][0],
+                      "max_rel_metric_err": metric_err,
+                      "max_grad_err_over_max": grad_err}), flush=True)
+    fail_unless(metric_err <= STEP_RTOL,
+                f"fp32 step: metrics differ by {metric_err} relative")
+
+
+def pretrain_throughput(torch, trainer, state, batch, card_name: str) -> None:
+    """steps/s and images/s at batch 64 over 10 windows of 10 steps, with
+    the kernels and with the plain words loss (autograd through the
+    vectorised form), the two taking their windows in turns, on one state."""
+    from attngan_torch.core.config import replace
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    plain = DamsmTrainer(replace(trainer.cfg, fused_similarity=False), VOCAB,
+                         DAMSM_SEQ)
+    paths = (("kernels", trainer), ("plain", plain))
+    for _, t in paths:
+        t.train_step(state, batch)
+    torch.cuda.synchronize()
+    rates = {label: [] for label, _ in paths}
+    for round_ in range(10):
+        for label, t in paths[round_ % 2:] + paths[:round_ % 2]:
+            start = time.perf_counter()
+            for _ in range(10):
+                t.train_step(state, batch)
+            torch.cuda.synchronize()
+            rates[label].append(10 / (time.perf_counter() - start))
+    for label, windows in rates.items():
+        median = statistics.median(windows)
+        print(json.dumps({
+            "phase": "pretrain_throughput", "path": label,
+            "batch": DAMSM_BATCH, "steps_per_s": median,
+            "images_per_s": median * DAMSM_BATCH, "windows": windows,
+            "spread_pct": 100 * (max(windows) - min(windows)) / median,
+            "card": card_name}), flush=True)
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -244,15 +529,7 @@ def serve(torch, card_name: str) -> dict:
         load_infer_state,
         save_infer_state,
     )
-    from attngan_torch.ops.cuda_attention import word_attention_cuda
-    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
-    from attngan_torch.ops.cuda_upblock_packed import (
-        upblock_fused_eval_packed_cuda,
-    )
-
-    counters = {"word_attention": word_attention_cuda,
-                "upblock_fused_eval": upblock_fused_eval_cuda,
-                "upblock_fused_eval_packed": upblock_fused_eval_packed_cuda}
+    counters = kernel_counters()
     cfg = GanConfig()                       # full width, bf16, kernels on
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
@@ -350,45 +627,74 @@ def throughput(torch, samplers, tokens, lengths, card_name: str) -> None:
             "card": card_name}), flush=True)
 
 
-def profile(torch, samplers, tokens, lengths, card_name: str) -> None:
-    """--profile: device time by kernel over 3 serving calls per path, and
-    the device's busy share of the wall time (torch.profiler, CUPTI)."""
+def profile_calls(torch, fn, calls: int = 3) -> dict:
+    """Runs ``fn`` once, then ``calls`` times under torch.profiler (CUPTI).
+    Per call: wall and device-busy ms, the device's idle share, kernels
+    launched, device time by kernel and by the PyTorch operator that
+    launched it (which names the elementwise kernels, whose own names are
+    generic), the optimizer's device time, and the host's time inside the
+    CUDA runtime by call (a copy from pageable memory waits there for the
+    stream to drain; a launch costs its own time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / calls
+    events = prof.key_averages()
+    per = 1e3 * calls                      # the profiler counts microseconds
+    # a user range (the optimizer's) also shows as a device-side span over
+    # its kernels: not a kernel, and counted once through them
+    kernels = [(e.key, e.self_device_time_total / per, e.count / calls)
+               for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    ops = [(e.key, e.self_device_time_total / per, e.count / calls)
+           for e in events if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    runtime = [(e.key, e.self_cpu_time_total / per, e.count / calls)
+               for e in events if e.key.startswith("cuda")]
+    # the optimizer's host range holds its kernels: inclusive device time
+    optimizer = [e.device_time_total / per for e in events
+                 if e.key.startswith("Optimizer.step")
+                 and e.device_type == DeviceType.CPU]
+    busy = sum(ms for _, ms, _ in kernels)
+    for rows in (kernels, ops, runtime):
+        rows.sort(key=lambda k: -k[1])
+    return {
+        "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
+        "idle_share": 1 - busy / wall_ms if wall_ms else None,
+        "kernels_per_call": sum(n for _, _, n in kernels),
+        "optimizer_ms": optimizer[0] if optimizer else None,
+        "top": [[name[:60], ms, n] for name, ms, n in kernels[:16]],
+        "top_ops": [[name[:40], ms, n] for name, ms, n in ops[:16]],
+        "host_runtime_ms": [[name, ms, n] for name, ms, n in runtime[:8]]}
+
+
+def profile(torch, samplers, tokens, lengths, card_name: str) -> None:
+    """--profile: 3 serving calls per path (``profile_calls``)."""
     for label, mode in (("kernels_k3", "packed"), ("kernels_k2", True),
                         ("plain", "plain")):
         sampler = samplers[mode]
         gen = torch.Generator("cuda").manual_seed(3)
-        sampler.generate_from_tokens(tokens, lengths, generator=gen)
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            for _ in range(3):
-                sampler.generate_from_tokens(tokens, lengths, generator=gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - start) * 1e3 / 3
-        events = prof.key_averages()
-        kernels = [(e.key, e.self_device_time_total / 3e3, e.count / 3)
-                   for e in events if e.device_type == DeviceType.CUDA]
-        # the device time of the kernels each PyTorch operator launched:
-        # names the elementwise kernels, whose own names are generic
-        ops = [(e.key, e.self_device_time_total / 3e3, e.count / 3)
-               for e in events if e.device_type == DeviceType.CPU
-               and e.self_device_time_total > 0]
-        busy = sum(ms for _, ms, _ in kernels)
-        kernels.sort(key=lambda k: -k[1])
-        ops.sort(key=lambda k: -k[1])
-        print(json.dumps({
-            "phase": "profile", "path": label, "batch": BATCH,
-            "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
-            "idle_share": 1 - busy / wall_ms if wall_ms else None,
-            "kernels_per_call": sum(n for _, _, n in kernels),
-            "top": [[name[:60], ms, n] for name, ms, n in kernels[:12]],
-            "top_ops": [[name[:40], ms, n] for name, ms, n in ops[:12]],
-            "card": card_name}), flush=True)
+        stats = profile_calls(torch, lambda: sampler.generate_from_tokens(
+            tokens, lengths, generator=gen))
+        print(json.dumps({"phase": "profile", "path": label, "batch": BATCH,
+                          **stats, "card": card_name}), flush=True)
+
+
+def profile_pretrain(torch, trainer, state, batch, card_name: str) -> None:
+    """--profile: 3 pretrain steps at batch 64 (``profile_calls``)."""
+    stats = profile_calls(torch, lambda: trainer.train_step(state, batch))
+    print(json.dumps({"phase": "profile", "path": "pretrain_step",
+                      "batch": DAMSM_BATCH, **stats, "card": card_name}),
+          flush=True)
 
 
 def main() -> int:
@@ -417,10 +723,17 @@ def main() -> int:
           flush=True)
 
     totals = check_kernels(torch, card_name)
+    totals.update(check_damsm_kernels(torch, card_name))
     launches, samplers, tokens, lengths = serve(torch, card_name)
     throughput(torch, samplers, tokens, lengths, card_name)
     if "--profile" in sys.argv[1:]:
         profile(torch, samplers, tokens, lengths, card_name)
+    del samplers
+    damsm_launches, trainer, state, batch = pretrain(torch, card_name)
+    launches.update(damsm_launches)
+    pretrain_throughput(torch, trainer, state, batch, card_name)
+    if "--profile" in sys.argv[1:]:
+        profile_pretrain(torch, trainer, state, batch, card_name)
 
     replaces = {
         "word_attention": ("attngan_torch/csrc/word_attention.cu",
@@ -430,6 +743,14 @@ def main() -> int:
         "upblock_fused_eval_packed": (
             "attngan_torch/csrc/upblock.cu",
             "attngan_tpu/ops/pallas_upblock_packed.py:124"),
+        "damsm_similarity": ("attngan_torch/csrc/damsm_similarity.cu",
+                             "attngan_tpu/ops/pallas_damsm.py:265"),
+        "damsm_similarity_bwd_square": (
+            "attngan_torch/csrc/damsm_similarity.cu",
+            "attngan_tpu/ops/pallas_damsm.py:297"),
+        "damsm_similarity_bwd_tiled": (
+            "attngan_torch/csrc/damsm_similarity.cu",
+            "attngan_tpu/ops/pallas_damsm.py:340"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():

@@ -9,7 +9,12 @@ it runs on a machine without JAX:
 Tolerances: fp32 at 1e-4 absolute (the same arithmetic in another summation
 order, TF32 off). bf16 outputs at 1e-2 absolute plus 2^-7 relative: one
 bf16 rounding step that a difference in fp32 summation order can flip.
-Attention maps are fp32 in both versions: 1e-5.
+Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
+(fp32 end to end): sims within 1e-4 relative and 1e-5 absolute; gradients
+within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
+region-softmax row term as d_v.v, the plain version as sum_r d_a2 a2, and
+both sum over 64-192 texts and 289 regions in other orders); scores of
+~1e3: 5e-3 relative, 5e-4 absolute, as tests/test_pallas.py allows.
 """
 
 import pytest
@@ -21,7 +26,17 @@ from attngan_torch.ops.cuda_upblock import (
     upblock_fused_eval,
     upblock_fused_eval_cuda,
 )
+from attngan_torch.ops.cuda_damsm import (
+    damsm_similarity,
+    damsm_similarity_bwd,
+    damsm_similarity_bwd_square,
+    damsm_similarity_bwd_tiled,
+)
 from attngan_torch.ops.cuda_upblock_packed import upblock_fused_eval_packed_cuda
+from attngan_torch.ops.damsm_similarity import (
+    similarity_bwd_plain,
+    similarity_plain,
+)
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
        torch.bfloat16: dict(atol=1e-2, rtol=2.0 ** -7)}
@@ -131,3 +146,76 @@ def test_upblock_kernels_reject_what_they_do_not_take(cuda):
     x, weight, k, b = _upblock_args(cuda, 1, 8, 8, 24, 8, torch.bfloat16)
     with pytest.raises(ValueError, match="do not fit"):
         upblock_fused_eval_cuda(x, weight, k, b)
+
+
+def _damsm_args(gen, bi, bt, l, r, d, extreme=False):
+    img = _randn(gen, bi, r, d)
+    words = _randn(gen, bt, l, d)
+    if extreme:
+        words[0] *= 250.0        # text 0's scores ~ +-1e3, the rest O(1)
+    lengths = torch.randint(1, l + 1, (bt,), generator=gen, device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).int()
+    return img, words, mask, _randn(gen, bi, bt)
+
+
+def _assert_grads_close(got, want):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+DAMSM_SHAPES = [(64, 64, 8, 289, 256), (16, 64, 8, 289, 256),
+                (5, 7, 3, 20, 32), (3, 130, 5, 17, 16), (2, 3, 8, 33, 4)]
+
+
+@pytest.mark.parametrize("bi,bt,l,r,d", DAMSM_SHAPES)
+def test_damsm_similarity_kernels_match_plain(cuda, bi, bt, l, r, d):
+    img, words, mask, g = _damsm_args(cuda, bi, bt, l, r, d)
+    before = damsm_similarity.launches
+    sims = damsm_similarity(img, words, mask)
+    torch.cuda.synchronize()
+    assert damsm_similarity.launches == before + 1
+    torch.testing.assert_close(sims, similarity_plain(img, words, mask),
+                               rtol=1e-4, atol=1e-5)
+    square = bi == bt <= 128
+    counter = (damsm_similarity_bwd_square if square
+               else damsm_similarity_bwd_tiled)
+    before = counter.launches
+    got = damsm_similarity_bwd(img, words, mask, g)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    _assert_grads_close(got, similarity_bwd_plain(img, words, mask, g))
+    again = damsm_similarity_bwd(img, words, mask, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # same bits
+
+
+def test_damsm_kernels_extreme_magnitudes(cuda):
+    img, words, mask, g = _damsm_args(cuda, 4, 4, 3, 9, 16, extreme=True)
+    torch.testing.assert_close(damsm_similarity(img, words, mask),
+                               similarity_plain(img, words, mask),
+                               rtol=5e-3, atol=5e-4)
+    for a, b in zip(damsm_similarity_bwd(img, words, mask, g),
+                    similarity_bwd_plain(img, words, mask, g)):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-4)
+
+
+def test_damsm_autograd_runs_the_backward_kernel(cuda):
+    img, words, mask, g = _damsm_args(cuda, 6, 6, 4, 25, 32)
+    mask[2] = 0                                  # a text with no word
+    im, wd = img.clone().requires_grad_(), words.clone().requires_grad_()
+    (damsm_similarity(im, wd, mask) * g).sum().backward()
+    want = similarity_bwd_plain(img, words, mask, g)
+    assert float(wd.grad[2].abs().max()) == 0.0
+    _assert_grads_close((im.grad, wd.grad), want)
+
+
+def test_damsm_kernels_reject_what_they_do_not_take(cuda):
+    img, words, mask, g = _damsm_args(cuda, 2, 2, 4, 9, 32)
+    with pytest.raises(TypeError):
+        damsm_similarity(img.bfloat16(), words.bfloat16(), mask)
+    with pytest.raises(ValueError, match="power of two"):
+        damsm_similarity(img[..., :24].contiguous(),
+                         words[..., :24].contiguous(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        damsm_similarity(img.transpose(1, 2).contiguous().transpose(1, 2),
+                         words, mask)

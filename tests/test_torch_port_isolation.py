@@ -45,6 +45,11 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 15
     bad = {os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
+    assert {"attngan_torch/ops/cuda_damsm.py",
+            "attngan_torch/ops/damsm_similarity.py",
+            "attngan_torch/losses/damsm.py",
+            "attngan_torch/models/cnn_encoder.py",
+            "attngan_torch/train/damsm_trainer.py"} <= set(bad)
     assert not {f: m for f, m in bad.items() if m}
 
 
