@@ -4,7 +4,12 @@ Replaces attngan_tpu/ops/pallas_upblock.py (``upblock_pallas`` /
 ``upblock_fused_eval``): glu(bn_k * conv3x3(upsample_nearest_2x(x)) + bn_b)
 without writing the upsampled or the pre-GLU tensor. The kernel is
 csrc/upblock.cu: bf16 on the tensor cores (Ci % 16 == 0, Co % 8 == 0),
-fp32 on the CUDA cores (Co % 4 == 0). ``upblock_fused_eval`` below is its
+fp32 on the CUDA cores (Co % 4 == 0). In bf16 at the dims of
+``RESIDENT_DIMS`` (the serving path's Ci=64 -> Co=32) it is the Hopper form,
+``upblock_resident_kernel``: persistent blocks that keep every parity's
+weights in shared memory, a cp.async ring of input tiles and wgmma
+products; other bf16 dims take the warp-level ``upblock_mma_kernel``.
+``upblock_fused_eval`` below is its
 plain version (the same parity decomposition, products accumulated in
 fp32), which the wrapper runs for a CPU tensor and nowhere else. Forward
 only, like the TPU kernel.
@@ -47,6 +52,43 @@ def parity_weights(weight: torch.Tensor) -> torch.Tensor:
     rows = _rows(weight.device)
     wp = torch.einsum("yak,xbl,oikl->yxabio", rows, rows, weight.float())
     return wp.reshape(4, 4 * ci, co2)
+
+
+# (Ci, Co) at which csrc/upblock.cu instantiates upblock_resident_kernel,
+# the serving path's: its wgmma consumers take N = 2*Co = 64, and 4
+# parities of 4*Ci x 64 bf16 weights must fit in shared memory beside the
+# tile ring
+RESIDENT_DIMS = frozenset({(64, 32)})
+# source pixels of one work unit of that kernel (res::kRows, res::kCols)
+UNIT_ROWS, UNIT_COLS = 8, 16
+
+
+def resident_weights(wp: torch.Tensor) -> torch.Tensor:
+    """Parity weights (4, 4Ci, 2Co) -> the resident kernel's B operand.
+
+    wgmma's canonical K-major layout without swizzle: 8 x 8 core matrices
+    (8 output channels n, each with 8 consecutive K values k, 16 bytes a
+    row), ordered [parity][K/8][2Co/8][n][k]."""
+    p, k, n = wp.shape
+    return (wp.reshape(p, k // 8, 8, n // 8, 8).permute(0, 1, 3, 4, 2)
+            .contiguous())
+
+
+def resident_units(b: int, h: int, w: int) -> int:
+    """Work units of the resident kernel: (image, 8 source rows, 16 source
+    columns), the last row and column of units ragged."""
+    return b * -(-h // UNIT_ROWS) * -(-w // UNIT_COLS)
+
+
+def resident_grid(b: int, h: int, w: int, sms: int) -> int:
+    """Persistent blocks: one per SM, fewer when there are fewer units.
+    Block i takes units i, i + grid, i + 2*grid, ..."""
+    return min(sms, resident_units(b, h, w))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def upblock_fused_eval(x: torch.Tensor, weight: torch.Tensor,
@@ -107,6 +149,9 @@ def lib() -> ctypes.CDLL:
     so.upblock_fused_eval.restype = i
     so.upblock_fused_eval_packed.argtypes = [i, p, p, p, p, p, i, i, i, p]
     so.upblock_fused_eval_packed.restype = i
+    so.upblock_fused_eval_resident.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, p]
+    so.upblock_fused_eval_resident.restype = i
     return so
 
 
@@ -135,15 +180,26 @@ def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     check_inputs("upblock_fused_eval_cuda", x, weight, bn_k, bn_b)
     b, h, w, ci = x.shape
+    co = weight.shape[0] // 2
     wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
-    status = lib().upblock_fused_eval(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
-        out.shape[3],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "upblock_fused_eval")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16 and (ci, co) in RESIDENT_DIMS:
+        wr = resident_weights(wp)
+        status = lib().upblock_fused_eval_resident(
+            x.data_ptr(), wr.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, w, ci, co,
+            resident_grid(b, h, w, _sm_count(x.device)), stream)
+        _build.check(status, "upblock_fused_eval (resident)")
+        upblock_fused_eval_cuda.resident_launches += 1
+    else:
+        status = lib().upblock_fused_eval(
+            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
+            co, stream)
+        _build.check(status, "upblock_fused_eval")
     upblock_fused_eval_cuda.launches += 1
     return out
 
 
-upblock_fused_eval_cuda.launches = 0   # kernel launches
+upblock_fused_eval_cuda.launches = 0            # kernel launches, any form
+upblock_fused_eval_cuda.resident_launches = 0   # of which the resident form

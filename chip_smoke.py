@@ -3,19 +3,24 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
-1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at once);
+1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at
+   once), with each kernel's registers and spills from ptxas; the resident
+   K2 kernel must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
    and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
    also timed (device time of one call, median of 20, see ``time_ms``)
-   beside the card's bound; then the DAMSM similarity (K4) and its backward
+   beside the card's bound; K2 beside the plain serving chain too
+   (``chain_ms``: upsample, bf16 conv, eval BN, GLU as the generator runs
+   them without the kernel); then the DAMSM similarity (K4) and its backward
    (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
    square at batch 64, 192 x 192, the sharded shape 16 x 64, and scores of
    ~1e3 at batch 64, timed beside their bound and plain versions;
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
-   counters reset just before each call and read just after; then fp32 at
+   counters reset just before each call and read just after (K2's bf16
+   calls take its resident-weight form: 2 a call); then fp32 at
    batch 2 against the port's own CPU run with the same weights and noise;
 4. throughput: img/s over 5 windows, through K2, through K3 and with the
    kernels off, the three paths taking their windows in turns;
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +140,46 @@ def time_ms(fn, iters: int = 20) -> float:
         cycles *= 4
 
 
+def ptxas_usage(log: str) -> list:
+    """[[kernel, registers, spill stores, spill loads]] from nvcc's
+    ``-Xptxas -v`` report (a kernel's lines follow its "Compiling entry
+    function" line)."""
+    rows = []
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"[a-z_]+kernel(?:ILi\d+ELi\d+E)?",
+                             entry.group(1))
+            rows.append([re.sub(r"ILi(\d+)ELi(\d+)E", r"<\1,\2>",
+                                name.group(0)) if name else entry.group(1),
+                         None, None, None])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and rows:
+            rows[-1][2:] = [int(spill.group(1)), int(spill.group(2))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and rows:
+            rows[-1][1] = int(regs.group(1))
+    return rows
+
+
+def upblock_chain(torch, weight, bn_k, bn_b, dtype):
+    """The plain serving chain the generator runs without the fused kernel
+    (ops/layers.py::UpBlock.forward with fused_inference off, eval mode),
+    holding this conv weight and BN constants: upsample_nearest_2x -> conv
+    in ``dtype`` -> eval BatchNorm -> glu. Takes NCHW (channels_last)."""
+    from attngan_torch.ops.layers import BN_EPS, UpBlock
+
+    block = UpBlock(weight.shape[1], weight.shape[0] // 2,
+                    dtype=dtype).cuda().eval()
+    with torch.no_grad():
+        block.conv.weight.copy_(weight)
+        block.bn.weight.copy_(bn_k)
+        block.bn.bias.copy_(bn_b)
+        block.bn.running_var.fill_(1.0 - BN_EPS)   # fold() = (bn_k, bn_b)
+    return block
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -196,10 +242,16 @@ def check_kernels(torch, card_name: str) -> dict:
         for name, fn, plain, args, flops, gen in kernel_cases(
                 torch, dtype, batch, seed=batch):
             before = fn.launches
+            resident = getattr(fn, "resident_launches", 0)
             got = fn(*args)
             torch.cuda.synchronize()
             fail_unless(fn.launches == before + 1,
                         f"{name} counted {fn.launches - before} launches")
+            if name == "upblock_fused_eval":   # bf16 at Ci=64 -> Co=32
+                want_res = resident + (dtype == torch.bfloat16)
+                fail_unless(fn.resident_launches == want_res,
+                            f"{name} {tname}: resident launches "
+                            f"{fn.resident_launches}, expected {want_res}")
             want = plain(*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -224,12 +276,19 @@ def check_kernels(torch, card_name: str) -> dict:
                 plain_ms = time_ms(lambda: plain(*args))
                 line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                             bytes=moved, flops=flops, card=card_name)
+                if name == "upblock_fused_eval":
+                    chain = upblock_chain(torch, *args[1:], dtype)
+                    nchw = args[0].permute(0, 3, 1, 2)
+                    with torch.inference_mode():
+                        line["chain_ms"] = time_ms(lambda: chain(nchw))
             if timed and dtype == torch.bfloat16:
                 t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0,
                                                  bound_ms=0.0, max_abs_err=0.0,
                                                  bytes_ms=0.0, flops_ms=0.0))
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
+                if "chain_ms" in line:
+                    t["chain_ms"] = t.get("chain_ms", 0.0) + line["chain_ms"]
                 t["bound_ms"] += bound
                 t["bytes_ms"] += moved / HBM_BYTES_PER_S * 1e3
                 t["flops_ms"] += flops / BF16_FLOPS_PER_S * 1e3
@@ -558,8 +617,10 @@ def serve(torch, card_name: str) -> dict:
         gen = torch.Generator("cuda").manual_seed(1)
         sampler.generate_from_tokens(tokens, lengths, generator=gen)  # warm
         torch.cuda.synchronize()
+        k2 = counters["upblock_fused_eval"]
         for fn in counters.values():
             fn.launches = 0
+        k2.resident_launches = 0
         imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
@@ -567,6 +628,11 @@ def serve(torch, card_name: str) -> dict:
         fail_unless(counts == expect,
                     f"fused_upsample={mode!r}: launches {counts}, "
                     f"expected {expect}")
+        # the K2 path's two UpBlocks (Ci=64 -> Co=32, bf16) take the
+        # resident-weight kernel
+        fail_unless(k2.resident_launches == (2 if mode is True else 0),
+                    f"fused_upsample={mode!r}: {k2.resident_launches} "
+                    f"resident K2 launches")
         for name in want[mode]:
             launches[name] = counts[name]
         std = float(imgs.float().std())
@@ -579,6 +645,7 @@ def serve(torch, card_name: str) -> dict:
         print(json.dumps({"phase": "serve", "fused_upsample": mode,
                           "batch": BATCH, "shape": list(imgs.shape),
                           "launches": counts,
+                          "k2_resident_launches": k2.resident_launches,
                           "mean": float(imgs.float().mean()), "std": std}),
               flush=True)
 
@@ -715,10 +782,15 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     for name, (path, seconds, log) in built.items():
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        usage = ptxas_usage(log)
         print(json.dumps({"phase": "build", "library": os.path.basename(path),
-                          "nvcc_s": seconds, "ptxas": usage}), flush=True)
+                          "nvcc_s": seconds,
+                          "ptxas": ["kernel, registers, spill stores, "
+                                    "spill loads", *usage]}), flush=True)
+        for kernel, _, stores, loads in usage:
+            fail_unless(not kernel.startswith("upblock_resident_kernel")
+                        or stores == loads == 0,
+                        f"{kernel} spills ({stores} / {loads} bytes)")
     print(json.dumps({"phase": "build", "total_s": time.perf_counter() - t0}),
           flush=True)
 
@@ -763,7 +835,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["flops_ms"]
             else "operations",
-            "library_ms": None})
+            "library_ms": None,
+            **({"chain_ms": t["chain_ms"]} if "chain_ms" in t else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name, flush=True)
     print(json.dumps({"ok": True, "device": {

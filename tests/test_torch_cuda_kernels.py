@@ -9,6 +9,8 @@ it runs on a machine without JAX:
 Tolerances: fp32 at 1e-4 absolute (the same arithmetic in another summation
 order, TF32 off). bf16 outputs at 1e-2 absolute plus 2^-7 relative: one
 bf16 rounding step that a difference in fp32 summation order can flip.
+The bf16 UpBlock at Ci=64 -> Co=32 takes the resident-weight wgmma
+kernel, counted by ``upblock_fused_eval_cuda.resident_launches``.
 Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
 (fp32 end to end): sims within 1e-4 relative and 1e-5 absolute; gradients
 within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
@@ -120,6 +122,44 @@ def test_upblock_kernel_matches_plain(cuda, dtype, b, h, w, ci, co):
     torch.cuda.synchronize()
     assert upblock_fused_eval_cuda.launches == before + 1
     assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (2, 64, 64, 64, 32),      # fewer units (128) than blocks
+    (8, 128, 128, 64, 32),    # the persistent loop wraps
+    (2, 20, 36, 64, 32),      # ragged units in both directions
+    (64, 64, 64, 64, 32),     # the serving path's gen2 call
+    (3, 17, 40, 64, 32),      # odd batch, one unit row of 1 source row
+])
+def test_upblock_resident_kernel_matches_plain(cuda, b, h, w, ci, co):
+    args = _upblock_args(cuda, b, h, w, ci, co, torch.bfloat16)
+    before = (upblock_fused_eval_cuda.launches,
+              upblock_fused_eval_cuda.resident_launches)
+    got = upblock_fused_eval_cuda(*args)
+    torch.cuda.synchronize()
+    assert (upblock_fused_eval_cuda.launches,
+            upblock_fused_eval_cuda.resident_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(upblock_fused_eval_cuda(*args), got)   # same bits
+
+
+@pytest.mark.parametrize("dtype,ci,co", [(torch.bfloat16, 128, 64),
+                                         (torch.bfloat16, 16, 8),
+                                         (torch.float32, 64, 32)])
+def test_upblock_other_dims_keep_the_warp_level_kernel(cuda, dtype, ci, co):
+    args = _upblock_args(cuda, 1, 9, 17, ci, co, dtype)
+    before = (upblock_fused_eval_cuda.launches,
+              upblock_fused_eval_cuda.resident_launches)
+    got = upblock_fused_eval_cuda(*args)
+    torch.cuda.synchronize()
+    assert (upblock_fused_eval_cuda.launches,
+            upblock_fused_eval_cuda.resident_launches) == (before[0] + 1,
+                                                           before[1])
     torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
                                **TOL[dtype])
 
