@@ -50,6 +50,33 @@
 // second kernel sums over the images in order (and, where the tiles of an
 // image are split over several blocks to fill the card, the d_ctx
 // partials too). Reruns give the same bits.
+//
+// damsm_bwd_tc_kernel: the same backward pass with its products on the
+// tensor cores. It replaces the same TPU kernels (pallas_damsm.py:158
+// _image_cell_bwd_kernel, :192 _tiled_bwd_kernel) for D a multiple of 32;
+// damsm_bwd_kernel keeps smaller D (a choice by shape, in
+// damsm_similarity_bwd). What bounds the pass is operations: per (image,
+// 64-row tile, 32-region chunk) it does seven 64 x 32 x 256 products (the
+// scores in both passes, v, d_a2, d_ctx's two, d_w), 29 GFLOP of fp32 work
+// at B = 64, 0.43 ms at the CUDA cores' 67 TFLOP/s. The design:
+//   - the products are mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
+//     split once, as its fragment is loaded, into TF32 hi + lo, and a step
+//     adds lo.hi + hi.lo, then hi.hi (relative error ~2^-22; 1xTF32, 2^-11,
+//     would move the loss). Three TF32 products per fp32 product at 495
+//     TFLOP/s bound the work as done at 0.18 ms at B = 64;
+//   - v, then d_w, stay in the mma accumulators: warp w holds a 64 x 32
+//     share of the tile's rows (TcTile), so the online softmax's rescale by
+//     alpha[row] is a multiply in registers and the row sums (w.v, v.v,
+//     d_v.v) are two quad shuffles and one pass over shared memory;
+//   - fragments come straight from the shared-memory rows the CUDA-core
+//     form already keeps (padded to D + 4 and kCs floats): the scores'
+//     [row][d] operands land on bank 4g + t, and the products that sum over
+//     rows take their depth in the order of kperm to land on 8t + g;
+//   - n8 tiles and k8 steps wholly past the chunk's last region are not
+//     issued: R = 289 leaves 1 region in the tenth chunk, whose products
+//     cost a quarter of a full chunk's (d_ctx's, by m16 tiles, a half);
+//   - the pass-2 scores are one M = 2 x 16 product per warp tile ([w; d_v]
+//     against the chunk), so each ctx fragment is loaded once for both.
 
 #include <math.h>
 #include <stdint.h>
@@ -430,6 +457,72 @@ damsm_fwd_kernel(const float* __restrict__ img, const float* __restrict__ words,
   }
 }
 
+// Eq. 10 and the cosine, backwards: per text d_agg (g_row: the cotangent of
+// the tile's texts), per word row the scalars of d_v and d_w. Block-wide.
+__device__ void words_bwd(const Smem& sm, const float* g_row, int texts,
+                          int rows, int L, float gamma2) {
+  for (int t = threadIdx.x; t < texts; t += kThreads) {
+    float agg = 0.f;
+    for (int l = 0; l < L; ++l) agg += rs(sm, kExpG)[t * L + l];
+    sm.text[t] = agg > 0.f ? g_row[t] / agg : 0.f;  // texts with no real word
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
+    const float norms = wn * vn, nc = fmaxf(norms, kEps);
+    const float num = rs(sm, kNum)[r];
+    const float d_cos = sm.text[r / L] * gamma2 * rs(sm, kExpG)[r];
+    const float d_norms = norms > kEps ? -d_cos * num / (nc * nc) : 0.f;
+    rs(sm, kDNum)[r] = d_cos / nc;
+    rs(sm, kDWn)[r] = d_norms * vn;
+    rs(sm, kWnC)[r] = fmaxf(wn, kEps);
+    rs(sm, kDVn)[r] = d_norms * wn;
+    rs(sm, kVnC)[r] = fmaxf(vn, kEps);
+  }
+  __syncthreads();
+}
+
+// Pass 2's softmax chain for one chunk, per (text, region): from the
+// scores in s and d_a2 in g, leaves a1 in s, a2 in a2 and scale * d_s in g
+// (a2 and g zero past nvalid).
+__device__ void chunk_bwd(const Smem& sm, int texts, int L, int nvalid,
+                          float gamma1, float scale) {
+  for (int p = threadIdx.x; p < texts * kChunk; p += kThreads) {
+    const int c = p % kChunk, base = (p / kChunk) * L;
+    if (c >= nvalid) {
+      for (int l = 0; l < L; ++l) {
+        sm.a2[(base + l) * kCs + c] = 0.f;
+        sm.g[(base + l) * kCs + c] = 0.f;
+      }
+      continue;
+    }
+    float m = -INFINITY;
+    for (int l = 0; l < L; ++l) m = fmaxf(m, sm.s[(base + l) * kCs + c]);
+    float sum = 0.f;
+    for (int l = 0; l < L; ++l) {
+      float* sp = sm.s + (base + l) * kCs + c;
+      *sp = expf(*sp - m);
+      sum += *sp;
+    }
+    const float den = fmaxf(sum, kEps);
+    float inner = 0.f;
+    for (int l = 0; l < L; ++l) {
+      const int r = base + l;
+      const float a1 = sm.s[r * kCs + c] / den;
+      const float a2 = expf(a1 * gamma1 - rs(sm, kM2)[r]) / rs(sm, kL2)[r];
+      const float d_a1 = a2 * (sm.g[r * kCs + c] - rs(sm, kRowT)[r]) * gamma1;
+      sm.s[r * kCs + c] = a1;
+      sm.a2[r * kCs + c] = a2;
+      sm.g[r * kCs + c] = d_a1;
+      inner += d_a1 * a1;
+    }
+    for (int l = 0; l < L; ++l) {
+      const int r = base + l;
+      sm.g[r * kCs + c] = scale * (sm.s[r * kCs + c] * (sm.g[r * kCs + c] - inner));
+    }
+  }
+}
+
 // Block (split s, image j) walks text tiles s, s + S, ... < K. d_ctx of
 // image j accumulates over them into dctx (its own slice); each tile's d_w
 // goes to dw_part[j].
@@ -456,28 +549,7 @@ damsm_bwd_kernel(const float* __restrict__ img, const float* __restrict__ words,
     float4 acc[kRowsPerThread];
     forward_pass(sm, ctx, acc, texts, rows, R, L, D, scale, gamma1);
     cosine_terms(sm, acc, rows, D, gamma2);
-
-    // Eq. 10 and the cosine, backwards, per text and per word row
-    for (int t = threadIdx.x; t < texts; t += kThreads) {
-      float agg = 0.f;
-      for (int l = 0; l < L; ++l) agg += rs(sm, kExpG)[t * L + l];
-      const float g = gout[(size_t)j * Bt + text0 + t];
-      sm.text[t] = agg > 0.f ? g / agg : 0.f;  // texts with no real word
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
-      const float norms = wn * vn, nc = fmaxf(norms, kEps);
-      const float num = rs(sm, kNum)[r];
-      const float d_cos = sm.text[r / L] * gamma2 * rs(sm, kExpG)[r];
-      const float d_norms = norms > kEps ? -d_cos * num / (nc * nc) : 0.f;
-      rs(sm, kDNum)[r] = d_cos / nc;
-      rs(sm, kDWn)[r] = d_norms * vn;
-      rs(sm, kWnC)[r] = fmaxf(wn, kEps);
-      rs(sm, kDVn)[r] = d_norms * wn;
-      rs(sm, kVnC)[r] = fmaxf(vn, kEps);
-    }
-    __syncthreads();
+    words_bwd(sm, gout + (size_t)j * Bt + text0, texts, rows, L, gamma2);
     // d_w = d_num v + d_wn w / |w| (kept in acc, where v was);
     // d_v = d_num w + d_vn v / |v| (to shared memory); row term d_v.v
     float pt[kRowsPerThread];
@@ -509,43 +581,7 @@ damsm_bwd_kernel(const float* __restrict__ img, const float* __restrict__ words,
       __syncthreads();
       chunk_scores<true>(sm, rows, D, scale);  // s and d_a2 = d_v . ctx
       __syncthreads();
-      // per (text, region): a1, a2, d_a1, then d_s over the text's words
-      for (int p = threadIdx.x; p < texts * kChunk; p += kThreads) {
-        const int c = p % kChunk, base = (p / kChunk) * L;
-        if (c >= nvalid) {
-          for (int l = 0; l < L; ++l) {
-            sm.a2[(base + l) * kCs + c] = 0.f;
-            sm.g[(base + l) * kCs + c] = 0.f;
-          }
-          continue;
-        }
-        float m = -INFINITY;
-        for (int l = 0; l < L; ++l) m = fmaxf(m, sm.s[(base + l) * kCs + c]);
-        float sum = 0.f;
-        for (int l = 0; l < L; ++l) {
-          float* sp = sm.s + (base + l) * kCs + c;
-          *sp = expf(*sp - m);
-          sum += *sp;
-        }
-        const float den = fmaxf(sum, kEps);
-        float inner = 0.f;
-        for (int l = 0; l < L; ++l) {
-          const int r = base + l;
-          const float a1 = sm.s[r * kCs + c] / den;
-          const float a2 =
-              expf(a1 * gamma1 - rs(sm, kM2)[r]) / rs(sm, kL2)[r];
-          const float d_a1 =
-              a2 * (sm.g[r * kCs + c] - rs(sm, kRowT)[r]) * gamma1;
-          sm.s[r * kCs + c] = a1;
-          sm.a2[r * kCs + c] = a2;
-          sm.g[r * kCs + c] = d_a1;
-          inner += d_a1 * a1;
-        }
-        for (int l = 0; l < L; ++l) {
-          const int r = base + l;
-          sm.g[r * kCs + c] = scale * (sm.s[r * kCs + c] * (sm.g[r * kCs + c] - inner));
-        }
-      }
+      chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
       __syncthreads();
       // d_ctx rows of this chunk: sum over the tile's rows of
       // a2 d_v + scale d_s w. The thread owns four columns of cpt
@@ -642,6 +678,417 @@ damsm_bwd_reduce_kernel(const float4* __restrict__ dw_part,
   }
 }
 
+// ---- the backward pass on the tensor cores (3xTF32 mma.sync) -------------
+
+constexpr int kTcRows = 64;                 // a warp's share of a (rows x D)
+constexpr int kTcCols = 32;                 // array: 4 x 4 m16n8 tiles
+constexpr int kTcSlots = kMaxD / kTcCols;   // warps sharing one row (8)
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32: lo holds the 13 bits that hi rounds off, to TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The depth index k of an m16n8k8 step as a shared-memory row: k = t and
+// t + 4 (the two halves a lane holds) become rows 2t and 2t + 1, so that
+// a fragment whose k runs down a [row][D + 4] or [row][kCs] array (row
+// strides of 4 mod 32 banks) lands on 8t + g: no bank conflict.
+__device__ __forceinline__ int kperm(int k) {
+  return (k & ~7) | ((k & 3) << 1) | ((k >> 2) & 1);
+}
+
+// acc[i][j] += A_i B_j over depth [0, kn) (kn a multiple of 8), in 3xTF32:
+// each operand is split once, as loaded, into hi + lo, and a step adds
+// lo.hi, then hi.lo, then hi.hi (lo.lo, ~2^-22 relative, is dropped).
+// lda(i, m, k) is A of the warp's m16 tile i at row m < 16, depth k;
+// ldb(j, k, n) is B of its n8 tile j. Tiles i >= mw, j >= nw are skipped.
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, t = lane % 4:
+// a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
+// c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+template <int MW, int NW, class LdA, class LdB>
+__device__ __forceinline__ void mma3(float (&acc)[MW][NW][4], int mw, int nw,
+                                     int kn, LdA lda, LdB ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int k0 = 0; k0 < kn; k0 += 8) {
+    uint32_t ah[MW][4], al[MW][4], bh[NW][2], bl[NW][2];
+#pragma unroll
+    for (int i = 0; i < MW; ++i) {
+      if (i < mw) {
+        split_tf32(lda(i, g, k0 + t), ah[i][0], al[i][0]);
+        split_tf32(lda(i, g + 8, k0 + t), ah[i][1], al[i][1]);
+        split_tf32(lda(i, g, k0 + t + 4), ah[i][2], al[i][2]);
+        split_tf32(lda(i, g + 8, k0 + t + 4), ah[i][3], al[i][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < nw) {
+        split_tf32(ldb(j, k0 + t, g), bh[j][0], bl[j][0]);
+        split_tf32(ldb(j, k0 + t + 4, g), bh[j][1], bl[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        if (i < mw && j < nw) {
+          mma_tf32(acc[i][j], al[i], bh[j]);
+          mma_tf32(acc[i][j], ah[i], bl[j]);
+          mma_tf32(acc[i][j], ah[i], bh[j]);
+        }
+  }
+}
+
+// The thread's rows and columns of its warp's 64 x 32 share of a (rows x D)
+// array held as acc[i][j][e]: row row0 + 16i + g + 8(e / 2), column
+// col0 + 8j + 2t + e % 2. Warp w holds rows 64 (w / (D/32)) and columns
+// 32 (w % (D/32)) onwards: rows * D <= kTileFloats fits 8 warps.
+struct TcTile {
+  int g, t, wn, ncol, row0, col0;
+  __device__ explicit TcTile(int D) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    g = lane >> 2;
+    t = lane & 3;
+    ncol = D / kTcCols;
+    wn = warp % ncol;
+    row0 = kTcRows * (warp / ncol);
+    col0 = kTcCols * wn;
+  }
+  __device__ int row(int i, int h) const { return row0 + 16 * i + g + 8 * h; }
+  __device__ int col(int j) const { return col0 + 8 * j + 2 * t; }
+  // m16 tiles of the share that hold rows below `rows`
+  __device__ int tiles(int rows) const {
+    return min(4, max(0, (rows - row0 + 15) / 16));
+  }
+};
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// s[row][c] = w[row].ctx[c] * scale + bias[row] and, with kDv,
+// g[row][c] = dv[row].ctx[c] (one M = 2 x 16 product per warp tile, so a
+// ctx fragment serves both). Warp tiles: 16 rows x 16 regions, n8 tiles
+// wholly past nvalid skipped.
+template <bool kDv>
+__device__ __forceinline__ void tc_scores(const Smem& sm, int rows,
+                                          int nvalid, int D, float scale) {
+  constexpr int MW = kDv ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int cs = D + 4, nt = (nvalid + 7) / 8;
+  for (int q = warp; q < 2 * ((rows + 15) / 16); q += kWarps) {
+    const int m0 = 16 * (q >> 1), n0 = 2 * (q & 1);
+    const int nw = min(2, nt - n0);
+    if (nw <= 0) continue;
+    const float* wa = sm.w + m0 * sm.ws;
+    const float* va = sm.dv + m0 * sm.ws;
+    const float* cb = sm.ctx + 8 * n0 * cs;
+    float acc[MW][2][4] = {};
+    mma3<MW, 2>(
+        acc, MW, nw, D,
+        [&](int i, int m, int k) { return (i == 0 ? wa : va)[m * sm.ws + k]; },
+        [&](int j, int k, int n) { return cb[(8 * j + n) * cs + k]; });
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= nw) break;
+      const int c = 8 * (n0 + j) + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + g + 8 * h;
+        if (r >= rows) continue;
+        const float b = rs(sm, kBias)[r];
+        st2(sm.s + r * kCs + c, acc[0][j][2 * h] * scale + b,
+            acc[0][j][2 * h + 1] * scale + b);
+        if (kDv) st2(sm.g + r * kCs + c, acc[MW - 1][j][2 * h],
+                     acc[MW - 1][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// acc += coef . ctx over the chunk's regions (coef [row][kCs], zero past
+// nvalid; rows >= rows read as zero). k8 steps wholly past nvalid skipped.
+__device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
+                                              const float* coef,
+                                              float (&acc)[4][4][4], int rows,
+                                              int nvalid, int D) {
+  const int cs = D + 4;
+  const float* cb = sm.ctx + tl.col0;
+  const float* ab = coef + tl.row0 * kCs;
+  const int rl = rows - tl.row0;
+  mma3<4, 4>(
+      acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
+      [&](int i, int m, int k) {
+        return 16 * i + m < rl ? ab[(16 * i + m) * kCs + k] : 0.f;
+      },
+      [&](int j, int k, int n) { return cb[k * cs + 8 * j + n]; });
+}
+
+// out_p[row] = sum over the row's D columns of part[p] (the thread's two
+// rows per m16 tile): over the lane quad by shuffles, then over the D/32
+// warps of the row in a fixed order. red holds NP x nr x kTcSlots floats.
+// Block-wide (syncs).
+template <int NP>
+__device__ __forceinline__ void tc_row_reduce(const Smem& sm, const TcTile& tl,
+                                              float* red,
+                                              float (&part)[NP][4][2],
+                                              float* const (&out)[NP],
+                                              int rows) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = part[p][i][h];
+        x += __shfl_xor_sync(kFull, x, 1);
+        x += __shfl_xor_sync(kFull, x, 2);
+        const int r = tl.row(i, h);
+        if (tl.t == 0 && r < rows)
+          red[(p * sm.nr + r) * kTcSlots + tl.wn] = x;
+      }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float* x = red + (p * sm.nr + r) * kTcSlots;
+      float sum = x[0];
+      for (int k = 1; k < tl.ncol; ++k) sum += x[k];
+      out[p][r] = sum;
+    }
+  __syncthreads();
+}
+
+// The same pass as damsm_bwd_kernel, its products on the tensor cores
+// (mma3) with v and then d_w in the mma accumulators (TcTile layout). The
+// word rows of a tile are padded to nr, a multiple of 16; padded rows read
+// as zero wherever a product sums over rows.
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_tc_kernel(const float* __restrict__ img,
+                    const float* __restrict__ words,
+                    const int* __restrict__ mask,
+                    const float* __restrict__ gout, float* __restrict__ dctx,
+                    float* __restrict__ dw_part, int Bi, int Bt, int R, int L,
+                    int D, int T, int S, float scale, float gamma1,
+                    float gamma2) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  const int s_idx = blockIdx.x, j = blockIdx.y;
+  const int K = (Bt + T - 1) / T;
+  const int nr = (T * L + 15) & ~15;
+  const float* ctx = img + (size_t)j * R * D;
+  float* dctx_j = dctx + ((size_t)s_idx * Bi + j) * R * D;
+  const Smem sm = carve(base, nr, D, true);
+  float* red = base + smem_floats(nr, D, true);
+  const TcTile tl(D);
+  const int warp = threadIdx.x >> 5;
+
+  for (int k = s_idx, it = 0; k < K; k += S, ++it) {
+    const int text0 = k * T;
+    const int texts = min(T, Bt - text0);
+    const int rows = texts * L;
+    const int mw = tl.tiles(rows);
+    __syncthreads();  // the previous tile is consumed
+    load_tile(sm, words, mask, text0, rows, L, D);
+
+    // pass 1: v (not yet divided by the softmax #2 sum) in acc
+    float acc[4][4][4] = {};
+    for (int r0 = 0; r0 < R; r0 += kChunk) {
+      const int nvalid = min(kChunk, R - r0);
+      __syncthreads();
+      load_chunk(sm, ctx, r0, R, D);
+      __syncthreads();
+      tc_scores<false>(sm, rows, nvalid, D, scale);
+      __syncthreads();
+      word_softmax(sm, texts, L, nvalid);
+      __syncthreads();
+      region_softmax_step(sm, rows, nvalid, gamma1);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = tl.row(i, h);
+          const float a = i < mw && r < rows ? rs(sm, kAlpha)[r] : 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[i][c][2 * h] *= a;
+            acc[i][c][2 * h + 1] *= a;
+          }
+        }
+      tc_accumulate(sm, tl, sm.s, acc, rows, nvalid, D);
+    }
+
+    // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
+    {
+      float part[2][4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = tl.row(i, h);
+          const bool in = i < mw && r < rows;
+          const float l2 = in ? rs(sm, kL2)[r] : 1.f;
+          float pn = 0.f, pv = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = acc[i][c][2 * h + e] / l2;
+              acc[i][c][2 * h + e] = v;
+              if (in) pn += sm.w[r * sm.ws + tl.col(c) + e] * v;
+              pv += v * v;
+            }
+          part[0][i][h] = pn;
+          part[1][i][h] = pv;
+        }
+      float* const out[2] = {rs(sm, kNum), rs(sm, kVV)};
+      tc_row_reduce<2>(sm, tl, red, part, out, rows);
+    }
+    for (int r = threadIdx.x; r < rows; r += kThreads) {
+      const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
+      const float cos = rs(sm, kNum)[r] / fmaxf(wn * vn, kEps);
+      rs(sm, kExpG)[r] = expf(gamma2 * cos) * rs(sm, kMaskF)[r];
+    }
+    __syncthreads();
+    words_bwd(sm, gout + (size_t)j * Bt + text0, texts, rows, L, gamma2);
+
+    // d_w = d_num v + d_wn w / |w| (in acc, where v was);
+    // d_v = d_num w + d_vn v / |v| (to shared memory); row term d_v.v
+    {
+      float part[1][4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = tl.row(i, h);
+          const bool in = i < mw && r < rows;
+          float dn = 0.f, dwn = 0.f, wnc = 1.f, dvn = 0.f, vnc = 1.f;
+          if (in) {
+            dn = rs(sm, kDNum)[r];
+            dwn = rs(sm, kDWn)[r];
+            wnc = rs(sm, kWnC)[r];
+            dvn = rs(sm, kDVn)[r];
+            vnc = rs(sm, kVnC)[r];
+          }
+          float pt = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float dv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float w = in ? sm.w[r * sm.ws + tl.col(c) + e] : 0.f;
+              const float v = acc[i][c][2 * h + e];
+              dv[e] = dn * w + dvn * v / vnc;
+              pt += dv[e] * v;
+              acc[i][c][2 * h + e] = dn * v + dwn * w / wnc;
+            }
+            if (in) st2(sm.dv + r * sm.ws + tl.col(c), dv[0], dv[1]);
+          }
+          part[0][i][h] = pt;
+        }
+      float* const out[1] = {rs(sm, kRowT)};
+      tc_row_reduce<1>(sm, tl, red, part, out, rows);
+    }
+
+    // pass 2: the regions again, chunk by chunk
+    for (int r0 = 0; r0 < R; r0 += kChunk) {
+      const int nvalid = min(kChunk, R - r0);
+      __syncthreads();
+      load_chunk(sm, ctx, r0, R, D);
+      __syncthreads();
+      tc_scores<true>(sm, rows, nvalid, D, scale);  // s and d_a2 = d_v . ctx
+      __syncthreads();
+      chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
+      __syncthreads();
+      // d_ctx rows of the chunk: a2^T d_v + (scale d_s)^T w, a K = 2 x rows
+      // product; warp w < D/32 owns columns 32w.. of all 32 regions (the
+      // second m16 tile skipped when nvalid <= 16).
+      if (warp < tl.ncol) {
+        float dc[2][4][4] = {};
+        const int mr = nvalid > 16 ? 2 : 1, kn = (rows + 7) & ~7;
+        const float* dvb = sm.dv + tl.col0;
+        const float* wb = sm.w + tl.col0;
+        const float* const coef[2] = {sm.a2, sm.g};
+        const float* const rowv[2] = {dvb, wb};
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          mma3<2, 4>(
+              dc, mr, 4, kn,
+              [&](int i, int m, int k) {
+                const int r = kperm(k);
+                return r < rows ? coef[p][r * kCs + 16 * i + m] : 0.f;
+              },
+              [&](int jj, int k, int n) {
+                const int r = kperm(k);
+                return r < rows ? rowv[p][r * sm.ws + 8 * jj + n] : 0.f;
+              });
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = 16 * i + tl.g + 8 * h;
+            if (i >= mr || c >= nvalid) continue;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float* out = dctx_j + (size_t)(r0 + c) * D + tl.col(jj);
+              float2 v = make_float2(dc[i][jj][2 * h], dc[i][jj][2 * h + 1]);
+              if (it > 0) {  // this thread wrote it for the previous tile
+                const float2 o = *reinterpret_cast<const float2*>(out);
+                v.x += o.x;
+                v.y += o.y;
+              }
+              *reinterpret_cast<float2*>(out) = v;
+            }
+          }
+      }
+      // d_w += scale d_s . ctx (scale already in g)
+      tc_accumulate(sm, tl, sm.g, acc, rows, nvalid, D);
+    }
+    // this (image, tile)'s d_w
+    float* dw = dw_part + ((size_t)j * Bt + text0) * L * D;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tl.row(i, h);
+        if (i >= mw || r >= rows) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          st2(dw + (size_t)r * D + tl.col(c), acc[i][c][2 * h],
+              acc[i][c][2 * h + 1]);
+      }
+  }
+}
+
+// The tensor-core pass takes D a multiple of kTcCols (32 .. 256): a warp
+// owns 32 columns of the word rows. Smaller D keeps damsm_bwd_kernel.
+bool takes_tc(int D) { return D % kTcCols == 0; }
+
+size_t smem_floats_tc(int T, int L, int D) {
+  const int nr = (T * L + 15) & ~15;
+  return smem_floats(nr, D, true) + 2 * (size_t)nr * kTcSlots;
+}
+
 bool valid_dims(int Bi, int Bt, int R, int L, int D, int T) {
   const bool pow2 = D >= 4 && D <= kMaxD && (D & (D - 1)) == 0;
   const int cap = kTileFloats / D < kMaxRows ? kTileFloats / D : kMaxRows;
@@ -680,9 +1127,13 @@ extern "C" int damsm_similarity_fwd(const float* img, const float* words,
   return (int)cudaGetLastError();
 }
 
+// 1 if damsm_similarity_bwd runs its pass on the tensor cores at this D.
+extern "C" int damsm_bwd_takes_tc(int D) { return attngan::takes_tc(D); }
+
 // Launches the backward pass and the reduction. dctx_part holds S partial
 // d_img arrays (S, Bi, R, D) when S > 1 (unused when S == 1: the pass then
-// writes d_img itself); dw_part is (Bi, Bt, L, D).
+// writes d_img itself); dw_part is (Bi, Bt, L, D). The pass is chosen by
+// shape: damsm_bwd_tc_kernel where takes_tc(D), else damsm_bwd_kernel.
 extern "C" int damsm_similarity_bwd(const float* img, const float* words,
                                     const int* mask, const float* gout,
                                     float* d_img, float* d_words,
@@ -695,10 +1146,13 @@ extern "C" int damsm_similarity_bwd(const float* img, const float* words,
   if (!valid_dims(Bi, Bt, R, L, D, T) || S < 1 || S > K || Bi > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = smem_floats(T * L, D, true) * sizeof(float);
-  cudaError_t err = set_smem((const void*)damsm_bwd_kernel, bytes);
+  const bool tc = takes_tc(D);
+  const auto kernel = tc ? damsm_bwd_tc_kernel : damsm_bwd_kernel;
+  const size_t bytes = (tc ? smem_floats_tc(T, L, D)
+                           : smem_floats(T * L, D, true)) * sizeof(float);
+  cudaError_t err = set_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  damsm_bwd_kernel<<<dim3(S, Bi), kThreads, bytes, s>>>(
+  kernel<<<dim3(S, Bi), kThreads, bytes, s>>>(
       img, words, mask, gout, S > 1 ? dctx_part : d_img, dw_part, Bi, Bt, R,
       L, D, T, S, scale, gamma1, gamma2);
   err = cudaGetLastError();

@@ -12,7 +12,10 @@ tensors and nowhere else.
 (Bt, L, D), mask (Bt, L) -> sims (Bi, Bt) fp32, for any Bi and Bt. Each
 wrapper counts the kernel launches it makes: one per forward call, two per
 backward call (the pass over the pairs, then the fixed-order reduction of
-its partial sums).
+its partial sums). The pass runs on the tensor cores (3xTF32
+``damsm_bwd_tc_kernel``) where D is a multiple of 32, on the CUDA cores
+(``damsm_bwd_kernel``) below that; each backward counter also counts, in
+``tc_launches``, the calls whose pass took the tensor cores.
 """
 
 from __future__ import annotations
@@ -88,8 +91,10 @@ def _lib() -> ctypes.CDLL:
                                          f, f, f, p]
     lib.damsm_similarity_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          i, i, i, f, f, f, p]
+    lib.damsm_bwd_takes_tc.argtypes = [i]
     lib.damsm_similarity_fwd.restype = i
     lib.damsm_similarity_bwd.restype = i
+    lib.damsm_bwd_takes_tc.restype = i
     return lib
 
 
@@ -145,7 +150,8 @@ def _launch_fwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
 
 def _launch_bwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
                 g: torch.Tensor, gamma1: float, gamma2: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """(d_img, d_words, whether the pass ran on the tensor cores)."""
     mask = _checked(img, words, mask, g)
     bi, r, d = img.shape
     bt, l = mask.shape
@@ -161,7 +167,7 @@ def _launch_bwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
         dw_part.data_ptr(), bi, bt, r, l, d, t, s, 1.0 / math.sqrt(d),
         gamma1, gamma2, _stream(img))
     _build.check(status, "damsm_similarity_bwd")
-    return d_img, d_words
+    return d_img, d_words, bool(_lib().damsm_bwd_takes_tc(d))
 
 
 def _backward(counter, img, words, mask, g, gamma1, gamma2):
@@ -169,9 +175,10 @@ def _backward(counter, img, words, mask, g, gamma1, gamma2):
         return similarity_bwd_plain(img, words, mask, g, gamma1, gamma2)
     if img.device.type != "cuda":
         raise ValueError(f"no kernel for device {img.device}")
-    out = _launch_bwd(img, words, mask, g, gamma1, gamma2)
+    d_img, d_words, tc = _launch_bwd(img, words, mask, g, gamma1, gamma2)
     counter.launches += 2
-    return out
+    counter.tc_launches += tc
+    return d_img, d_words
 
 
 def damsm_similarity_bwd_square(img, words, mask, g, gamma1=4.0, gamma2=5.0):
@@ -235,3 +242,5 @@ def words_loss_fused(img_features, words_emb, labels, word_mask, class_ids,
 damsm_similarity.launches = 0
 damsm_similarity_bwd_square.launches = 0
 damsm_similarity_bwd_tiled.launches = 0
+damsm_similarity_bwd_square.tc_launches = 0
+damsm_similarity_bwd_tiled.tc_launches = 0

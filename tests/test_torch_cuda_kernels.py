@@ -16,7 +16,10 @@ Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
 within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
 region-softmax row term as d_v.v, the plain version as sum_r d_a2 a2, and
 both sum over 64-192 texts and 289 regions in other orders); scores of
-~1e3: 5e-3 relative, 5e-4 absolute, as tests/test_pallas.py allows.
+~1e3: 5e-3 relative, 5e-4 absolute, as tests/test_pallas.py allows. The
+backward's pass runs on the tensor cores in 3xTF32 at D a multiple of 32
+(``tc_launches``) and is held to the same tolerances
+(tests/test_torch_port_damsm_tf32.py states its error on the CPU).
 """
 
 import pytest
@@ -227,6 +230,56 @@ def test_damsm_similarity_kernels_match_plain(cuda, bi, bt, l, r, d):
     _assert_grads_close(got, similarity_bwd_plain(img, words, mask, g))
     again = damsm_similarity_bwd(img, words, mask, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # same bits
+
+
+def _counts(counter):
+    return counter.launches, counter.tc_launches
+
+
+@pytest.mark.parametrize("bi,bt,l,r,d", [
+    (64, 64, 8, 289, 256),     # K5 on the pretrain step
+    (192, 192, 8, 289, 256),   # K6 on the B=192 step
+    (16, 64, 8, 289, 256),     # K6, a data-parallel shard's rows
+    (4, 6, 8, 33, 256),        # ragged R: 1 region in the last chunk
+    (3, 5, 8, 17, 256),        # R < one chunk, n8 tiles skipped
+    (4, 9, 3, 40, 256),        # L=3: 63-row tiles, padded to 64
+    (5, 30, 5, 50, 128),       # L=5 at D=128: 125-row tiles, two row bands
+    (3, 4, 5, 20, 32),         # D=32: one warp per row band
+])
+def test_damsm_backward_tensor_core_pass(cuda, bi, bt, l, r, d):
+    img, words, mask, g = _damsm_args(cuda, bi, bt, l, r, d)
+    counter = (damsm_similarity_bwd_square if bi == bt <= 128
+               else damsm_similarity_bwd_tiled)
+    before = _counts(counter)
+    got = damsm_similarity_bwd(img, words, mask, g)
+    torch.cuda.synchronize()
+    assert _counts(counter) == (before[0] + 2, before[1] + 1)
+    _assert_grads_close(got, similarity_bwd_plain(img, words, mask, g))
+    again = damsm_similarity_bwd(img, words, mask, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # same bits
+
+
+def test_damsm_backward_tensor_cores_extreme_and_empty_text(cuda):
+    img, words, mask, g = _damsm_args(cuda, 64, 64, 8, 289, 256,
+                                      extreme=True)
+    mask[5] = 0                                  # a text with no real word
+    before = _counts(damsm_similarity_bwd_square)
+    got = damsm_similarity_bwd(img, words, mask, g)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity_bwd_square) == (before[0] + 2,
+                                                    before[1] + 1)
+    assert float(got[1][5].abs().max()) == 0.0
+    for a, b in zip(got, similarity_bwd_plain(img, words, mask, g)):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-4)
+
+
+def test_damsm_backward_small_d_keeps_the_cuda_core_pass(cuda):
+    img, words, mask, g = _damsm_args(cuda, 2, 3, 8, 33, 4)
+    before = _counts(damsm_similarity_bwd_tiled)
+    got = damsm_similarity_bwd(img, words, mask, g)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity_bwd_tiled) == (before[0] + 2, before[1])
+    _assert_grads_close(got, similarity_bwd_plain(img, words, mask, g))
 
 
 def test_damsm_kernels_extreme_magnitudes(cuda):
