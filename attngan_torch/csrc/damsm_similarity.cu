@@ -684,77 +684,151 @@ constexpr int kTcRows = 64;                 // a warp's share of a (rows x D)
 constexpr int kTcCols = 32;                 // array: 4 x 4 m16n8 tiles
 constexpr int kTcSlots = kMaxD / kTcCols;   // warps sharing one row (8)
 
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32: lo holds the 13 bits that hi rounds off, to TF32
+// x = hi + lo, hi with 11 significant bits (a TF32 value: its low 13 bits
+// zero) and lo = x - hi exactly: Veltkamp's split, four full-rate fp32
+// operations (a cvt.rna.tf32 conversion each for hi and lo ran a quarter
+// of the products' time slower). The tensor cores read lo's top 19 bits.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
+  const float t = __fmul_rn(x, 8193.f);  // 2^13 + 1; _rn: never contracted
+  const float h = __fsub_rn(t, __fsub_rn(t, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The depth index k of an m16n8k8 step as a shared-memory row: k = t and
-// t + 4 (the two halves a lane holds) become rows 2t and 2t + 1, so that
-// a fragment whose k runs down a [row][D + 4] or [row][kCs] array (row
-// strides of 4 mod 32 banks) lands on 8t + g: no bank conflict.
-__device__ __forceinline__ int kperm(int k) {
-  return (k & ~7) | ((k & 3) << 1) | ((k >> 2) & 1);
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-// acc[i][j] += A_i B_j over depth [0, kn) (kn a multiple of 8), in 3xTF32:
-// each operand is split once, as loaded, into hi + lo, and a step adds
-// lo.hi, then hi.lo, then hi.hi (lo.lo, ~2^-22 relative, is dropped).
-// lda(i, m, k) is A of the warp's m16 tile i at row m < 16, depth k;
-// ldb(j, k, n) is B of its n8 tile j. Tiles i >= mw, j >= nw are skipped.
-// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, t = lane % 4:
+// Operand fragments of one m16n8k8 step at depth k0, read from shared
+// memory (PTX ISA, mma.m16n8k8 .tf32; g = lane / 4, t = lane % 4):
 // a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
 // c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
-template <int MW, int NW, class LdA, class LdB>
-__device__ __forceinline__ void mma3(float (&acc)[MW][NW][4], int mw, int nw,
-                                     int kn, LdA lda, LdB ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// A stored [m][k] with row stride sa:
+__device__ __forceinline__ void frag_a(const float* p, int sa, int k0,
+                                       float (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* q = p + (lane >> 2) * sa + k0 + (lane & 3);
+  a[0] = q[0];
+  a[1] = q[8 * sa];
+  a[2] = q[4];
+  a[3] = q[8 * sa + 4];
+}
+// A stored [k][m] with row stride sa:
+__device__ __forceinline__ void frag_a_t(const float* p, int sa, int k0,
+                                         float (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* q = p + (k0 + (lane & 3)) * sa + (lane >> 2);
+  a[0] = q[0];
+  a[1] = q[8];
+  a[2] = q[4 * sa];
+  a[3] = q[4 * sa + 8];
+}
+// B stored [k][n] with row stride sb:
+__device__ __forceinline__ void frag_b(const float* p, int sb, int k0,
+                                       float (&b)[2]) {
+  const int lane = threadIdx.x & 31;
+  const float* q = p + (k0 + (lane & 3)) * sb + (lane >> 2);
+  b[0] = q[0];
+  b[1] = q[4 * sb];
+}
+// A stored [m][k] and B stored [n][k] (a product over a contiguous depth),
+// the depth taken in pair order: a lane's depths t and t + 4 are the
+// adjacent floats 2t, 2t + 1, one 8-byte load (the same order for A and B,
+// so the product is unchanged). Row strides of 8 mod 32 floats put a
+// half-warp's loads on 32 distinct banks.
+__device__ __forceinline__ void frag_a_pairs(const float* p, int sa, int k0,
+                                             float (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* q = p + (lane >> 2) * sa + k0 + 2 * (lane & 3);
+  const float2 x = ld2(q), y = ld2(q + 8 * sa);
+  a[0] = x.x;
+  a[1] = y.x;
+  a[2] = x.y;
+  a[3] = y.y;
+}
+__device__ __forceinline__ void frag_b_pairs(const float* p, int sb, int k0,
+                                             float (&b)[2]) {
+  const int lane = threadIdx.x & 31;
+  const float2 x = ld2(p + (lane >> 2) * sb + k0 + 2 * (lane & 3));
+  b[0] = x.x;
+  b[1] = x.y;
+}
+
+template <int MW, int NW, bool kFull, class FA, class FB>
+__device__ __forceinline__ void mma3_steps(float (&c0)[MW][NW][4],
+                                           float (&c1)[MW][NW][4],
+                                           float (&c2)[MW][NW][4], int mw,
+                                           int nw, int kn, FA fa, FB fb) {
 #pragma unroll 1
   for (int k0 = 0; k0 < kn; k0 += 8) {
     uint32_t ah[MW][4], al[MW][4], bh[NW][2], bl[NW][2];
 #pragma unroll
     for (int i = 0; i < MW; ++i) {
-      if (i < mw) {
-        split_tf32(lda(i, g, k0 + t), ah[i][0], al[i][0]);
-        split_tf32(lda(i, g + 8, k0 + t), ah[i][1], al[i][1]);
-        split_tf32(lda(i, g, k0 + t + 4), ah[i][2], al[i][2]);
-        split_tf32(lda(i, g + 8, k0 + t + 4), ah[i][3], al[i][3]);
+      if (kFull || i < mw) {
+        float a[4];
+        fa(i, k0, a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[i][e], al[i][e]);
       }
     }
 #pragma unroll
     for (int j = 0; j < NW; ++j) {
-      if (j < nw) {
-        split_tf32(ldb(j, k0 + t, g), bh[j][0], bl[j][0]);
-        split_tf32(ldb(j, k0 + t + 4, g), bh[j][1], bl[j][1]);
+      if (kFull || j < nw) {
+        float b[2];
+        fb(j, k0, b);
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[1], bh[j][1], bl[j][1]);
       }
     }
 #pragma unroll
     for (int i = 0; i < MW; ++i)
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        if (i < mw && j < nw) {
-          mma_tf32(acc[i][j], al[i], bh[j]);
-          mma_tf32(acc[i][j], ah[i], bl[j]);
-          mma_tf32(acc[i][j], ah[i], bh[j]);
-        }
+        if (kFull || (i < mw && j < nw)) mma_tf32(c0[i][j], al[i], bh[j]);
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        if (kFull || (i < mw && j < nw)) mma_tf32(c1[i][j], ah[i], bl[j]);
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        if (kFull || (i < mw && j < nw)) mma_tf32(c2[i][j], ah[i], bh[j]);
   }
+}
+
+// A_i B_j over depth [0, kn) (kn a multiple of 8) in 3xTF32, added to
+// c0[i][j] (the lo.hi terms), c1 (hi.lo) and c2 (hi.hi): each operand is
+// split once, as loaded, into hi + lo; lo.lo, ~2^-22 relative, is dropped.
+// Pass one array three times to sum in it (small terms first), or three
+// arrays for three independent chains of mma where the tiles are few.
+// Each of the three runs over every tile before the next, so that an mma
+// does not wait on the one before it. fa(i, k0, a) loads the A fragment of
+// the warp's m16 tile i, fb(j, k0, b) the B fragment of its n8 tile j.
+// Tiles i >= mw, j >= nw are skipped; a full set takes a path without
+// the guards.
+template <int MW, int NW, class FA, class FB>
+__device__ __forceinline__ void mma3(float (&c0)[MW][NW][4],
+                                     float (&c1)[MW][NW][4],
+                                     float (&c2)[MW][NW][4], int mw, int nw,
+                                     int kn, FA fa, FB fb) {
+  if (mw == MW && nw == NW)
+    mma3_steps<MW, NW, true>(c0, c1, c2, mw, nw, kn, fa, fb);
+  else
+    mma3_steps<MW, NW, false>(c0, c1, c2, mw, nw, kn, fa, fb);
 }
 
 // The thread's rows and columns of its warp's 64 x 32 share of a (rows x D)
@@ -780,33 +854,54 @@ struct TcTile {
   }
 };
 
-__device__ __forceinline__ void st2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+// The tensor-core pass's shared memory: the CUDA-core pass's arrays as
+// carve(base, nr, D + 4) lays them out, i.e. with the rows of w, dv and
+// ctx padded to D + 8 floats (the pair-order loads' stride), then the
+// row-sum slots of tc_row_reduce.
+__host__ __device__ inline size_t smem_floats_tc(int nr, int D) {
+  return smem_floats(nr, D + 4, true) + 2 * (size_t)nr * kTcSlots;
+}
+
+// Regions r0 .. r0 + 31 of one image into ctx rows of D + 8 (zeros past R).
+__device__ void tc_load_chunk(const Smem& sm, const float* ctx, int r0, int R,
+                              int D) {
+  const int n4 = D / 4;
+  for (int i = threadIdx.x; i < kChunk * n4; i += kThreads) {
+    const int c = i / n4, q = i % n4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + c < R) v = ld4(ctx + (size_t)(r0 + c) * D + 4 * q);
+    st4(sm.ctx + c * sm.ws + 4 * q, v);
+  }
 }
 
 // s[row][c] = w[row].ctx[c] * scale + bias[row] and, with kDv,
 // g[row][c] = dv[row].ctx[c] (one M = 2 x 16 product per warp tile, so a
-// ctx fragment serves both). Warp tiles: 16 rows x 16 regions, n8 tiles
-// wholly past nvalid skipped.
+// ctx fragment serves both); rows from `rows` to the next multiple of 16
+// get zeros. Warp tiles: 16 rows x 16 regions, n8 tiles wholly past
+// nvalid skipped.
 template <bool kDv>
 __device__ __forceinline__ void tc_scores(const Smem& sm, int rows,
-                                          int nvalid, int D, float scale) {
+                                          int nvalid, float scale) {
   constexpr int MW = kDv ? 2 : 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int cs = D + 4, nt = (nvalid + 7) / 8;
+  const int nt = (nvalid + 7) / 8, D = sm.ws - 8;
   for (int q = warp; q < 2 * ((rows + 15) / 16); q += kWarps) {
     const int m0 = 16 * (q >> 1), n0 = 2 * (q & 1);
     const int nw = min(2, nt - n0);
     if (nw <= 0) continue;
     const float* wa = sm.w + m0 * sm.ws;
     const float* va = sm.dv + m0 * sm.ws;
-    const float* cb = sm.ctx + 8 * n0 * cs;
-    float acc[MW][2][4] = {};
+    const float* cb = sm.ctx + 8 * n0 * sm.ws;
+    float c0[MW][2][4] = {}, c1[MW][2][4] = {}, acc[MW][2][4] = {};
     mma3<MW, 2>(
-        acc, MW, nw, D,
-        [&](int i, int m, int k) { return (i == 0 ? wa : va)[m * sm.ws + k]; },
-        [&](int j, int k, int n) { return cb[(8 * j + n) * cs + k]; });
+        c0, c1, acc, MW, nw, D,
+        [&](int i, int k0, float (&a)[4]) {
+          frag_a_pairs(i == 0 ? wa : va, sm.ws, k0, a);
+        },
+        [&](int j, int k0, float (&b)[2]) {
+          frag_b_pairs(cb + 8 * j * sm.ws, sm.ws, k0, b);
+        });
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (j >= nw) break;
@@ -814,33 +909,41 @@ __device__ __forceinline__ void tc_scores(const Smem& sm, int rows,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + g + 8 * h;
-        if (r >= rows) continue;
-        const float b = rs(sm, kBias)[r];
-        st2(sm.s + r * kCs + c, acc[0][j][2 * h] * scale + b,
-            acc[0][j][2 * h + 1] * scale + b);
-        if (kDv) st2(sm.g + r * kCs + c, acc[MW - 1][j][2 * h],
-                     acc[MW - 1][j][2 * h + 1]);
+        const bool in = r < rows;
+        const float b = in ? rs(sm, kBias)[r] : 0.f;
+        float x[MW][2];
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            x[i][e] = in ? acc[i][j][2 * h + e] +
+                               (c0[i][j][2 * h + e] + c1[i][j][2 * h + e])
+                         : 0.f;
+        st2(sm.s + r * kCs + c, in ? x[0][0] * scale + b : 0.f,
+            in ? x[0][1] * scale + b : 0.f);
+        if (kDv) st2(sm.g + r * kCs + c, x[MW - 1][0], x[MW - 1][1]);
       }
     }
   }
 }
 
 // acc += coef . ctx over the chunk's regions (coef [row][kCs], zero past
-// nvalid; rows >= rows read as zero). k8 steps wholly past nvalid skipped.
+// nvalid and in the rows past the tile's up to the next multiple of 16).
+// k8 steps wholly past nvalid skipped.
 __device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
                                               const float* coef,
                                               float (&acc)[4][4][4], int rows,
-                                              int nvalid, int D) {
-  const int cs = D + 4;
+                                              int nvalid) {
   const float* cb = sm.ctx + tl.col0;
   const float* ab = coef + tl.row0 * kCs;
-  const int rl = rows - tl.row0;
   mma3<4, 4>(
-      acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
-      [&](int i, int m, int k) {
-        return 16 * i + m < rl ? ab[(16 * i + m) * kCs + k] : 0.f;
+      acc, acc, acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
+      [&](int i, int k0, float (&a)[4]) {
+        frag_a(ab + 16 * i * kCs, kCs, k0, a);
       },
-      [&](int j, int k, int n) { return cb[k * cs + 8 * j + n]; });
+      [&](int j, int k0, float (&b)[2]) {
+        frag_b(cb + 8 * j, sm.ws, k0, b);
+      });
 }
 
 // out_p[row] = sum over the row's D columns of part[p] (the thread's two
@@ -878,6 +981,30 @@ __device__ __forceinline__ void tc_row_reduce(const Smem& sm, const TcTile& tl,
   __syncthreads();
 }
 
+// Built with -DDAMSM_PHASE_CLOCKS (attngan_torch/tools/damsm_phases.py),
+// thread 0 of each block of damsm_bwd_tc_kernel adds the cycles of each
+// phase to g_phase_cycles; PHASE_SYNC adds a barrier first, so that the
+// phase ends for every warp. Without the flag both are empty.
+#ifdef DAMSM_PHASE_CLOCKS
+__device__ unsigned long long g_phase_cycles[16];
+struct PhaseClock {
+  long long last;
+  __device__ void mark(int k) {
+    const long long now = clock64();
+    if (threadIdx.x == 0)
+      atomicAdd(&g_phase_cycles[k], (unsigned long long)(now - last));
+    last = now;
+  }
+};
+#define PHASE_CLOCK PhaseClock clock{clock64()}
+#define PHASE(k) clock.mark(k)
+#define PHASE_SYNC(k) (__syncthreads(), clock.mark(k))
+#else
+#define PHASE_CLOCK
+#define PHASE(k) ((void)0)
+#define PHASE_SYNC(k) ((void)0)
+#endif
+
 // The same pass as damsm_bwd_kernel, its products on the tensor cores
 // (mma3) with v and then d_w in the mma accumulators (TcTile layout). The
 // word rows of a tile are padded to nr, a multiple of 16; padded rows read
@@ -897,10 +1024,11 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
   const int nr = (T * L + 15) & ~15;
   const float* ctx = img + (size_t)j * R * D;
   float* dctx_j = dctx + ((size_t)s_idx * Bi + j) * R * D;
-  const Smem sm = carve(base, nr, D, true);
-  float* red = base + smem_floats(nr, D, true);
+  const Smem sm = carve(base, nr, D + 4, true);  // rows of D + 8
+  float* red = base + smem_floats(nr, D + 4, true);
   const TcTile tl(D);
   const int warp = threadIdx.x >> 5;
+  PHASE_CLOCK;
 
   for (int k = s_idx, it = 0; k < K; k += S, ++it) {
     const int text0 = k * T;
@@ -909,20 +1037,31 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
     const int mw = tl.tiles(rows);
     __syncthreads();  // the previous tile is consumed
     load_tile(sm, words, mask, text0, rows, L, D);
+    // rows past the tile's read as zero in the products over rows
+    for (int i = threadIdx.x; i < (nr - rows) * sm.ws; i += kThreads)
+      sm.w[rows * sm.ws + i] = 0.f;
+    for (int i = threadIdx.x; i < (nr - rows) * kCs; i += kThreads)
+      sm.a2[rows * kCs + i] = 0.f;
+    PHASE_SYNC(0);
 
     // pass 1: v (not yet divided by the softmax #2 sum) in acc
     float acc[4][4][4] = {};
     for (int r0 = 0; r0 < R; r0 += kChunk) {
       const int nvalid = min(kChunk, R - r0);
       __syncthreads();
-      load_chunk(sm, ctx, r0, R, D);
+      PHASE(5);
+      tc_load_chunk(sm, ctx, r0, R, D);
       __syncthreads();
-      tc_scores<false>(sm, rows, nvalid, D, scale);
+      PHASE(1);
+      tc_scores<false>(sm, rows, nvalid, scale);
       __syncthreads();
+      PHASE(2);
       word_softmax(sm, texts, L, nvalid);
       __syncthreads();
+      PHASE(3);
       region_softmax_step(sm, rows, nvalid, gamma1);
       __syncthreads();
+      PHASE(4);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -935,8 +1074,9 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
             acc[i][c][2 * h + 1] *= a;
           }
         }
-      tc_accumulate(sm, tl, sm.s, acc, rows, nvalid, D);
+      tc_accumulate(sm, tl, sm.s, acc, rows, nvalid);
     }
+    PHASE_SYNC(5);
 
     // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
     {
@@ -1002,24 +1142,29 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
               pt += dv[e] * v;
               acc[i][c][2 * h + e] = dn * v + dwn * w / wnc;
             }
-            if (in) st2(sm.dv + r * sm.ws + tl.col(c), dv[0], dv[1]);
+            if (r < nr) st2(sm.dv + r * sm.ws + tl.col(c), dv[0], dv[1]);
           }
           part[0][i][h] = pt;
         }
       float* const out[1] = {rs(sm, kRowT)};
       tc_row_reduce<1>(sm, tl, red, part, out, rows);
     }
+    PHASE_SYNC(6);
 
     // pass 2: the regions again, chunk by chunk
     for (int r0 = 0; r0 < R; r0 += kChunk) {
       const int nvalid = min(kChunk, R - r0);
       __syncthreads();
-      load_chunk(sm, ctx, r0, R, D);
+      PHASE(11);
+      tc_load_chunk(sm, ctx, r0, R, D);
       __syncthreads();
-      tc_scores<true>(sm, rows, nvalid, D, scale);  // s and d_a2 = d_v . ctx
+      PHASE(7);
+      tc_scores<true>(sm, rows, nvalid, scale);  // s and d_a2 = d_v . ctx
       __syncthreads();
+      PHASE(8);
       chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
       __syncthreads();
+      PHASE(9);
       // d_ctx rows of the chunk: a2^T d_v + (scale d_s)^T w, a K = 2 x rows
       // product; warp w < D/32 owns columns 32w.. of all 32 regions (the
       // second m16 tile skipped when nvalid <= 16).
@@ -1033,14 +1178,12 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
 #pragma unroll
         for (int p = 0; p < 2; ++p)
           mma3<2, 4>(
-              dc, mr, 4, kn,
-              [&](int i, int m, int k) {
-                const int r = kperm(k);
-                return r < rows ? coef[p][r * kCs + 16 * i + m] : 0.f;
+              dc, dc, dc, mr, 4, kn,
+              [&](int i, int k0, float (&a)[4]) {
+                frag_a_t(coef[p] + 16 * i, kCs, k0, a);
               },
-              [&](int jj, int k, int n) {
-                const int r = kperm(k);
-                return r < rows ? rowv[p][r * sm.ws + 8 * jj + n] : 0.f;
+              [&](int jj, int k0, float (&b)[2]) {
+                frag_b(rowv[p] + 8 * jj, sm.ws, k0, b);
               });
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -1061,9 +1204,11 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
             }
           }
       }
+      PHASE_SYNC(10);
       // d_w += scale d_s . ctx (scale already in g)
-      tc_accumulate(sm, tl, sm.g, acc, rows, nvalid, D);
+      tc_accumulate(sm, tl, sm.g, acc, rows, nvalid);
     }
+    PHASE_SYNC(11);
     // this (image, tile)'s d_w
     float* dw = dw_part + ((size_t)j * Bt + text0) * L * D;
 #pragma unroll
@@ -1077,17 +1222,13 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
           st2(dw + (size_t)r * D + tl.col(c), acc[i][c][2 * h],
               acc[i][c][2 * h + 1]);
       }
+    PHASE_SYNC(12);
   }
 }
 
 // The tensor-core pass takes D a multiple of kTcCols (32 .. 256): a warp
 // owns 32 columns of the word rows. Smaller D keeps damsm_bwd_kernel.
 bool takes_tc(int D) { return D % kTcCols == 0; }
-
-size_t smem_floats_tc(int T, int L, int D) {
-  const int nr = (T * L + 15) & ~15;
-  return smem_floats(nr, D, true) + 2 * (size_t)nr * kTcSlots;
-}
 
 bool valid_dims(int Bi, int Bt, int R, int L, int D, int T) {
   const bool pow2 = D >= 4 && D <= kMaxD && (D & (D - 1)) == 0;
@@ -1127,6 +1268,18 @@ extern "C" int damsm_similarity_fwd(const float* img, const float* words,
   return (int)cudaGetLastError();
 }
 
+#ifdef DAMSM_PHASE_CLOCKS
+// Copies g_phase_cycles to out (16 counts) and zeroes it.
+extern "C" int damsm_phase_cycles(unsigned long long* out) {
+  using namespace attngan;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles,
+                                         sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zeros[16] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros));
+}
+#endif
+
 // 1 if damsm_similarity_bwd runs its pass on the tensor cores at this D.
 extern "C" int damsm_bwd_takes_tc(int D) { return attngan::takes_tc(D); }
 
@@ -1148,7 +1301,7 @@ extern "C" int damsm_similarity_bwd(const float* img, const float* words,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tc = takes_tc(D);
   const auto kernel = tc ? damsm_bwd_tc_kernel : damsm_bwd_kernel;
-  const size_t bytes = (tc ? smem_floats_tc(T, L, D)
+  const size_t bytes = (tc ? smem_floats_tc((T * L + 15) & ~15, D)
                            : smem_floats(T * L, D, true)) * sizeof(float);
   cudaError_t err = set_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
