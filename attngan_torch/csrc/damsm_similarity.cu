@@ -767,68 +767,61 @@ __device__ __forceinline__ void frag_b_pairs(const float* p, int sb, int k0,
 }
 
 template <int MW, int NW, bool kFull, class FA, class FB>
-__device__ __forceinline__ void mma3_steps(float (&c0)[MW][NW][4],
-                                           float (&c1)[MW][NW][4],
-                                           float (&c2)[MW][NW][4], int mw,
+__device__ __forceinline__ void mma3_steps(float (&acc)[MW][NW][4], int mw,
                                            int nw, int kn, FA fa, FB fb) {
 #pragma unroll 1
   for (int k0 = 0; k0 < kn; k0 += 8) {
     uint32_t ah[MW][4], al[MW][4], bh[NW][2], bl[NW][2];
 #pragma unroll
-    for (int i = 0; i < MW; ++i) {
+    for (int i = 0; i < MW; ++i)
       if (kFull || i < mw) {
         float a[4];
         fa(i, k0, a);
 #pragma unroll
         for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[i][e], al[i][e]);
       }
-    }
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
+    for (int j = 0; j < NW; ++j)
       if (kFull || j < nw) {
         float b[2];
         fb(j, k0, b);
         split_tf32(b[0], bh[j][0], bl[j][0]);
         split_tf32(b[1], bh[j][1], bl[j][1]);
       }
-    }
 #pragma unroll
     for (int i = 0; i < MW; ++i)
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        if (kFull || (i < mw && j < nw)) mma_tf32(c0[i][j], al[i], bh[j]);
+        if (kFull || (i < mw && j < nw)) mma_tf32(acc[i][j], al[i], bh[j]);
 #pragma unroll
     for (int i = 0; i < MW; ++i)
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        if (kFull || (i < mw && j < nw)) mma_tf32(c1[i][j], ah[i], bl[j]);
+        if (kFull || (i < mw && j < nw)) mma_tf32(acc[i][j], ah[i], bl[j]);
 #pragma unroll
     for (int i = 0; i < MW; ++i)
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        if (kFull || (i < mw && j < nw)) mma_tf32(c2[i][j], ah[i], bh[j]);
+        if (kFull || (i < mw && j < nw)) mma_tf32(acc[i][j], ah[i], bh[j]);
   }
 }
 
-// A_i B_j over depth [0, kn) (kn a multiple of 8) in 3xTF32, added to
-// c0[i][j] (the lo.hi terms), c1 (hi.lo) and c2 (hi.hi): each operand is
-// split once, as loaded, into hi + lo; lo.lo, ~2^-22 relative, is dropped.
-// Pass one array three times to sum in it (small terms first), or three
-// arrays for three independent chains of mma where the tiles are few.
-// Each of the three runs over every tile before the next, so that an mma
-// does not wait on the one before it. fa(i, k0, a) loads the A fragment of
-// the warp's m16 tile i, fb(j, k0, b) the B fragment of its n8 tile j.
-// Tiles i >= mw, j >= nw are skipped; a full set takes a path without
-// the guards.
+// acc[i][j] += A_i B_j over depth [0, kn) (kn a multiple of 8) in 3xTF32:
+// each operand is split once, as loaded, into hi + lo, and a step adds
+// lo.hi, then hi.lo, then hi.hi (lo.lo, ~2^-22 relative, is dropped),
+// each of the three over every tile before the next, so that an mma does
+// not wait on the one before it. fa(i, k0, a) loads the A fragment of the
+// warp's m16 tile i, fb(j, k0, b) the B fragment of its n8 tile j. Tiles
+// i >= mw, j >= nw are skipped; a full set takes a path without the
+// guards. (Prefetching the next step's fragments, or three accumulator
+// chains per tile, cost registers that ptxas then spilled: both slower.)
 template <int MW, int NW, class FA, class FB>
-__device__ __forceinline__ void mma3(float (&c0)[MW][NW][4],
-                                     float (&c1)[MW][NW][4],
-                                     float (&c2)[MW][NW][4], int mw, int nw,
+__device__ __forceinline__ void mma3(float (&acc)[MW][NW][4], int mw, int nw,
                                      int kn, FA fa, FB fb) {
   if (mw == MW && nw == NW)
-    mma3_steps<MW, NW, true>(c0, c1, c2, mw, nw, kn, fa, fb);
+    mma3_steps<MW, NW, true>(acc, mw, nw, kn, fa, fb);
   else
-    mma3_steps<MW, NW, false>(c0, c1, c2, mw, nw, kn, fa, fb);
+    mma3_steps<MW, NW, false>(acc, mw, nw, kn, fa, fb);
 }
 
 // The thread's rows and columns of its warp's 64 x 32 share of a (rows x D)
@@ -854,96 +847,250 @@ struct TcTile {
   }
 };
 
-// The tensor-core pass's shared memory: the CUDA-core pass's arrays as
-// carve(base, nr, D + 4) lays them out, i.e. with the rows of w, dv and
-// ctx padded to D + 8 floats (the pair-order loads' stride), then the
-// row-sum slots of tc_row_reduce.
+constexpr int kTcMaxRows = 64;  // word rows of a tensor-core tile (4 m16)
+constexpr int kTcMaxL = 8;      // words of a text its softmaxes hold in
+                                // registers (DataConfig.max_seqlen)
+
+// The tensor-core pass's shared memory, in floats: w and dv [nr][D + 8]
+// (rows padded to the pair-order loads' stride), a ring of two region
+// chunks [2][kChunk][D + 8], s and g [nr][kCs] (pass 2 leaves a2 in s), the
+// row scalars, the texts' d_agg and tc_row_reduce's slots.
 __host__ __device__ inline size_t smem_floats_tc(int nr, int D) {
-  return smem_floats(nr, D + 4, true) + 2 * (size_t)nr * kTcSlots;
+  return (size_t)(2 * nr + 2 * kChunk) * (D + 8) + 2 * (size_t)nr * kCs +
+         (size_t)nr * (kNumRowScalars + 1 + 2 * kTcSlots);
 }
 
-// Regions r0 .. r0 + 31 of one image into ctx rows of D + 8 (zeros past R).
-__device__ void tc_load_chunk(const Smem& sm, const float* ctx, int r0, int R,
-                              int D) {
-  const int n4 = D / 4;
-  for (int i = threadIdx.x; i < kChunk * n4; i += kThreads) {
-    const int c = i / n4, q = i % n4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + c < R) v = ld4(ctx + (size_t)(r0 + c) * D + 4 * q);
-    st4(sm.ctx + c * sm.ws + 4 * q, v);
+__device__ inline Smem carve_tc(float* base, int nr, int D, float*& red) {
+  Smem sm;
+  sm.nr = nr;
+  sm.ws = D + 8;
+  sm.w = base;
+  sm.dv = sm.w + (size_t)nr * sm.ws;
+  sm.ctx = sm.dv + (size_t)nr * sm.ws;  // ring stage 0; stage 1 follows
+  sm.s = sm.ctx + 2 * (size_t)kChunk * sm.ws;
+  sm.a2 = sm.s;
+  sm.g = sm.s + (size_t)nr * kCs;
+  sm.rs = sm.g + (size_t)nr * kCs;
+  sm.text = sm.rs + (size_t)kNumRowScalars * nr;
+  sm.red = nullptr;
+  red = sm.text + nr;
+  return sm;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Regions r0 .. r0 + 31 of one image into a ring stage (rows of ws floats,
+// zeros past R), as one cp.async group of 16-byte copies.
+__device__ __forceinline__ void tc_issue_chunk(float* stage, int ws,
+                                               const float* ctx, int r0,
+                                               int R, int D) {
+  const int n4 = D / 4, q = threadIdx.x % n4;  // D / 4 divides kThreads
+  const uint32_t dst = smem_addr(stage) + 16 * q;
+  for (int c = threadIdx.x / n4; c < kChunk; c += kThreads / n4) {
+    const bool in = r0 + c < R;
+    const float* src = ctx + (size_t)(in ? r0 + c : 0) * D + 4 * q;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst + 4 * c * ws),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // s[row][c] = w[row].ctx[c] * scale + bias[row] and, with kDv,
-// g[row][c] = dv[row].ctx[c] (one M = 2 x 16 product per warp tile, so a
-// ctx fragment serves both); rows from `rows` to the next multiple of 16
-// get zeros. Warp tiles: 16 rows x 16 regions, n8 tiles wholly past
-// nvalid skipped.
+// g[row][c] = dv[row].ctx[c], over the chunk cb. Warps 2i and 2i + 1 own
+// m16 tile i (16 rows x the 32 regions, n8 tiles wholly past nvalid
+// skipped) and the two halves of the depth D; the second half's sums go to
+// s and g, where the first adds them after a barrier (a fixed order). With
+// kDv one M = 2 x 16 product, so a ctx fragment serves w and d_v. Rows
+// from `rows` to the next multiple of 16 get zeros.
 template <bool kDv>
-__device__ __forceinline__ void tc_scores(const Smem& sm, int rows,
-                                          int nvalid, float scale) {
+__device__ __forceinline__ void tc_scores(const Smem& sm, const float* cb,
+                                          int rows, int nvalid, float scale) {
   constexpr int MW = kDv ? 2 : 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nt = (nvalid + 7) / 8, D = sm.ws - 8;
-  for (int q = warp; q < 2 * ((rows + 15) / 16); q += kWarps) {
-    const int m0 = 16 * (q >> 1), n0 = 2 * (q & 1);
-    const int nw = min(2, nt - n0);
-    if (nw <= 0) continue;
-    const float* wa = sm.w + m0 * sm.ws;
-    const float* va = sm.dv + m0 * sm.ws;
-    const float* cb = sm.ctx + 8 * n0 * sm.ws;
-    float c0[MW][2][4] = {}, c1[MW][2][4] = {}, acc[MW][2][4] = {};
-    mma3<MW, 2>(
-        c0, c1, acc, MW, nw, D,
+  const int half = warp & 1, m0 = 16 * (warp >> 1), kh = (sm.ws - 8) / 2;
+  const int nt = (nvalid + 7) / 8;
+  const bool active = m0 < rows;
+  float acc[MW][4][4] = {};
+  if (active) {
+    const float* wa = sm.w + m0 * sm.ws + half * kh;
+    const float* va = sm.dv + m0 * sm.ws + half * kh;
+    const float* ch = cb + half * kh;
+    mma3<MW, 4>(
+        acc, MW, nt, kh,
         [&](int i, int k0, float (&a)[4]) {
           frag_a_pairs(i == 0 ? wa : va, sm.ws, k0, a);
         },
         [&](int j, int k0, float (&b)[2]) {
-          frag_b_pairs(cb + 8 * j * sm.ws, sm.ws, k0, b);
+          frag_b_pairs(ch + 8 * j * sm.ws, sm.ws, k0, b);
         });
+  }
+  float* const out[2] = {sm.s, sm.g};
+  if (active && half == 1) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (j >= nw) break;
-      const int c = 8 * (n0 + j) + 2 * t;
+    for (int i = 0; i < MW; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + g + 8 * h;
-        const bool in = r < rows;
-        const float b = in ? rs(sm, kBias)[r] : 0.f;
-        float x[MW][2];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < MW; ++i)
+        for (int h = 0; h < 2; ++h)
+          if (j < nt)
+            st2(out[i] + (m0 + g + 8 * h) * kCs + 8 * j + 2 * t,
+                acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  }
+  __syncthreads();
+  if (active && half == 0) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            x[i][e] = in ? acc[i][j][2 * h + e] +
-                               (c0[i][j][2 * h + e] + c1[i][j][2 * h + e])
-                         : 0.f;
-        st2(sm.s + r * kCs + c, in ? x[0][0] * scale + b : 0.f,
-            in ? x[0][1] * scale + b : 0.f);
-        if (kDv) st2(sm.g + r * kCs + c, x[MW - 1][0], x[MW - 1][1]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      const bool in = r < rows;
+      const float b = in ? rs(sm, kBias)[r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nt) continue;
+        const int c = 8 * j + 2 * t;
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          float* p = out[i] + r * kCs + c;
+          const float2 o = ld2(p);
+          float x = acc[i][j][2 * h] + o.x, y = acc[i][j][2 * h + 1] + o.y;
+          if (i == 0) {
+            x = x * scale + b;
+            y = y * scale + b;
+          }
+          st2(p, in ? x : 0.f, in ? y : 0.f);
+        }
       }
     }
   }
 }
 
-// acc += coef . ctx over the chunk's regions (coef [row][kCs], zero past
-// nvalid and in the rows past the tile's up to the next multiple of 16).
-// k8 steps wholly past nvalid skipped.
+// acc += coef . ctx over the chunk cb's regions (coef [row][kCs], zero
+// past nvalid and in the rows past the tile's up to the next multiple of
+// 16). k8 steps wholly past nvalid skipped.
 __device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
+                                              const float* cb,
                                               const float* coef,
                                               float (&acc)[4][4][4], int rows,
                                               int nvalid) {
-  const float* cb = sm.ctx + tl.col0;
+  const float* cc = cb + tl.col0;
   const float* ab = coef + tl.row0 * kCs;
   mma3<4, 4>(
-      acc, acc, acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
+      acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
       [&](int i, int k0, float (&a)[4]) {
         frag_a(ab + 16 * i * kCs, kCs, k0, a);
       },
-      [&](int j, int k0, float (&b)[2]) {
-        frag_b(cb + 8 * j, sm.ws, k0, b);
-      });
+      [&](int j, int k0, float (&b)[2]) { frag_b(cc + 8 * j, sm.ws, k0, b); });
+}
+
+// Softmax #1 of one (text, region): the text's L scores of region `lane`
+// (rows base ..) to a1 = e1 / max(sum, 1e-8), in x.
+__device__ __forceinline__ void text_a1(const Smem& sm, int base, int L,
+                                        float (&x)[kTcMaxL]) {
+  const int lane = threadIdx.x & 31;
+  float m = -INFINITY;
+#pragma unroll
+  for (int l = 0; l < kTcMaxL; ++l)
+    if (l < L) {
+      x[l] = sm.s[(base + l) * kCs + lane];
+      m = fmaxf(m, x[l]);
+    }
+  float sum = 0.f;
+#pragma unroll
+  for (int l = 0; l < kTcMaxL; ++l)
+    if (l < L) {
+      x[l] = expf(x[l] - m);
+      sum += x[l];
+    }
+  const float den = fmaxf(sum, kEps);
+#pragma unroll
+  for (int l = 0; l < kTcMaxL; ++l)
+    if (l < L) x[l] = x[l] / den;
+}
+
+// Pass 1's softmaxes for one chunk, a warp per text and a lane per region:
+// softmax #1 in registers, then the online step of softmax #2 per word row
+// (shuffles over the chunk's regions, the L rows' reductions interleaved),
+// leaving exp(t - max) in s and the rescale factor of the earlier chunks'
+// sums in alpha (lane l updates row l's scalars).
+__device__ __forceinline__ void tc_softmax_fwd(const Smem& sm, int texts,
+                                               int L, int nvalid,
+                                               float gamma1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool cv = lane < nvalid;
+  for (int tx = warp; tx < texts; tx += kWarps) {
+    const int base = tx * L;
+    float x[kTcMaxL], m_old[kTcMaxL], m[kTcMaxL], sum[kTcMaxL];
+    text_a1(sm, base, L, x);
+#pragma unroll
+    for (int l = 0; l < kTcMaxL; ++l) {
+      x[l] = cv && l < L ? x[l] * gamma1 : -INFINITY;
+      m[l] = x[l];
+      m_old[l] = l < L ? rs(sm, kM2)[base + l] : 0.f;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int l = 0; l < kTcMaxL; ++l)
+        m[l] = fmaxf(m[l], __shfl_xor_sync(kFull, m[l], off));
+#pragma unroll
+    for (int l = 0; l < kTcMaxL; ++l) {
+      m[l] = fmaxf(m_old[l], m[l]);            // the new running max
+      x[l] = cv ? expf(x[l] - m[l]) : 0.f;     // p
+      sum[l] = x[l];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int l = 0; l < kTcMaxL; ++l)
+        sum[l] += __shfl_xor_sync(kFull, sum[l], off);
+#pragma unroll
+    for (int l = 0; l < kTcMaxL; ++l) {
+      if (l >= L) break;
+      const int r = base + l;
+      sm.s[r * kCs + lane] = x[l];
+      if (lane == l) {
+        const float alpha = expf(m_old[l] - m[l]);
+        rs(sm, kAlpha)[r] = alpha;
+        rs(sm, kL2)[r] = rs(sm, kL2)[r] * alpha + sum[l];
+        rs(sm, kM2)[r] = m[l];
+      }
+    }
+  }
+}
+
+// Pass 2's chain for one chunk, a warp per text and a lane per region:
+// from the scores in s and d_a2 in g, leaves a2 in s and scale * d_s in g
+// (zeros past nvalid), as chunk_bwd does (every load before any store).
+__device__ __forceinline__ void tc_chunk_bwd(const Smem& sm, int texts, int L,
+                                             int nvalid, float gamma1,
+                                             float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool cv = lane < nvalid;
+  for (int tx = warp; tx < texts; tx += kWarps) {
+    const int base = tx * L;
+    float x[kTcMaxL], a2[kTcMaxL], d[kTcMaxL];
+    text_a1(sm, base, L, x);
+    float inner = 0.f;
+#pragma unroll
+    for (int l = 0; l < kTcMaxL; ++l)
+      if (l < L) {
+        const int r = base + l;
+        a2[l] = expf(x[l] * gamma1 - rs(sm, kM2)[r]) / rs(sm, kL2)[r];
+        d[l] = a2[l] * (sm.g[r * kCs + lane] - rs(sm, kRowT)[r]) * gamma1;
+        inner += d[l] * x[l];
+      }
+#pragma unroll
+    for (int l = 0; l < kTcMaxL; ++l)
+      if (l < L) {
+        const int r = base + l;
+        sm.s[r * kCs + lane] = cv ? a2[l] : 0.f;
+        sm.g[r * kCs + lane] = cv ? scale * (x[l] * (d[l] - inner)) : 0.f;
+      }
+  }
 }
 
 // out_p[row] = sum over the row's D columns of part[p] (the thread's two
@@ -1006,29 +1153,51 @@ struct PhaseClock {
 #endif
 
 // The same pass as damsm_bwd_kernel, its products on the tensor cores
-// (mma3) with v and then d_w in the mma accumulators (TcTile layout). The
-// word rows of a tile are padded to nr, a multiple of 16; padded rows read
-// as zero wherever a product sums over rows.
+// (mma3) with v and then d_w in the mma accumulators (TcTile layout), its
+// softmaxes a warp per text, and the image's chunks streamed through a
+// two-stage cp.async ring (the chunk after the one being computed is in
+// flight: the stream runs through both passes and every tile of the
+// block, which all walk the same image). Tiles hold at most kTcMaxRows
+// word rows, padded to nr, a multiple of 16; padded rows read as zero
+// wherever a product sums over rows. D is a template parameter (the D
+// argument is unused): strides and addresses are then constants, where a
+// runtime D left ptxas spilling the addresses it hoists.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 damsm_bwd_tc_kernel(const float* __restrict__ img,
                     const float* __restrict__ words,
                     const int* __restrict__ mask,
                     const float* __restrict__ gout, float* __restrict__ dctx,
                     float* __restrict__ dw_part, int Bi, int Bt, int R, int L,
-                    int D, int T, int S, float scale, float gamma1,
+                    int, int T, int S, float scale, float gamma1,
                     float gamma2) {
   extern __shared__ float4 smem4[];
-  float* base = reinterpret_cast<float*>(smem4);
   const int s_idx = blockIdx.x, j = blockIdx.y;
   const int K = (Bt + T - 1) / T;
   const int nr = (T * L + 15) & ~15;
   const float* ctx = img + (size_t)j * R * D;
   float* dctx_j = dctx + ((size_t)s_idx * Bi + j) * R * D;
-  const Smem sm = carve(base, nr, D + 4, true);  // rows of D + 8
-  float* red = base + smem_floats(nr, D + 4, true);
+  float* red;
+  const Smem sm = carve_tc(reinterpret_cast<float*>(smem4), nr, D, red);
   const TcTile tl(D);
   const int warp = threadIdx.x >> 5;
   PHASE_CLOCK;
+
+  // the chunk stream: chunks 0 .. nc - 1 twice per tile
+  const int nc = (R + kChunk - 1) / kChunk;
+  const int total = 2 * nc * ((K - s_idx + S - 1) / S);
+  int n = 0;
+  tc_issue_chunk(sm.ctx, sm.ws, ctx, 0, R, D);
+  // waits for chunk n, frees the stage of chunk n - 1 (the barrier), puts
+  // chunk n + 1 in flight there; returns chunk n's stage
+  auto next_chunk = [&]() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (n + 1 < total)
+      tc_issue_chunk(sm.ctx + ((n + 1) & 1) * kChunk * sm.ws, sm.ws, ctx,
+                     (n + 1) % nc * kChunk, R, D);
+    return sm.ctx + (n++ & 1) * kChunk * sm.ws;
+  };
 
   for (int k = s_idx, it = 0; k < K; k += S, ++it) {
     const int text0 = k * T;
@@ -1041,27 +1210,21 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
     for (int i = threadIdx.x; i < (nr - rows) * sm.ws; i += kThreads)
       sm.w[rows * sm.ws + i] = 0.f;
     for (int i = threadIdx.x; i < (nr - rows) * kCs; i += kThreads)
-      sm.a2[rows * kCs + i] = 0.f;
+      sm.s[rows * kCs + i] = sm.g[rows * kCs + i] = 0.f;
     PHASE_SYNC(0);
 
     // pass 1: v (not yet divided by the softmax #2 sum) in acc
     float acc[4][4][4] = {};
     for (int r0 = 0; r0 < R; r0 += kChunk) {
       const int nvalid = min(kChunk, R - r0);
-      __syncthreads();
-      PHASE(5);
-      tc_load_chunk(sm, ctx, r0, R, D);
-      __syncthreads();
+      const float* cb = next_chunk();
       PHASE(1);
-      tc_scores<false>(sm, rows, nvalid, scale);
+      tc_scores<false>(sm, cb, rows, nvalid, scale);
       __syncthreads();
       PHASE(2);
-      word_softmax(sm, texts, L, nvalid);
+      tc_softmax_fwd(sm, texts, L, nvalid, gamma1);
       __syncthreads();
       PHASE(3);
-      region_softmax_step(sm, rows, nvalid, gamma1);
-      __syncthreads();
-      PHASE(4);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1074,9 +1237,9 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
             acc[i][c][2 * h + 1] *= a;
           }
         }
-      tc_accumulate(sm, tl, sm.s, acc, rows, nvalid);
+      tc_accumulate(sm, tl, cb, sm.s, acc, rows, nvalid);
+      PHASE_SYNC(4);
     }
-    PHASE_SYNC(5);
 
     // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
     {
@@ -1087,13 +1250,13 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
         for (int h = 0; h < 2; ++h) {
           const int r = tl.row(i, h);
           const bool in = i < mw && r < rows;
-          const float l2 = in ? rs(sm, kL2)[r] : 1.f;
+          const float inv = in ? 1.f / rs(sm, kL2)[r] : 1.f;
           float pn = 0.f, pv = 0.f;
 #pragma unroll
           for (int c = 0; c < 4; ++c)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const float v = acc[i][c][2 * h + e] / l2;
+              const float v = acc[i][c][2 * h + e] * inv;
               acc[i][c][2 * h + e] = v;
               if (in) pn += sm.w[r * sm.ws + tl.col(c) + e] * v;
               pv += v * v;
@@ -1104,6 +1267,7 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
       float* const out[2] = {rs(sm, kNum), rs(sm, kVV)};
       tc_row_reduce<2>(sm, tl, red, part, out, rows);
     }
+    PHASE(5);
     for (int r = threadIdx.x; r < rows; r += kThreads) {
       const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
       const float cos = rs(sm, kNum)[r] / fmaxf(wn * vn, kEps);
@@ -1111,6 +1275,7 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
     }
     __syncthreads();
     words_bwd(sm, gout + (size_t)j * Bt + text0, texts, rows, L, gamma2);
+    PHASE(12);
 
     // d_w = d_num v + d_wn w / |w| (in acc, where v was);
     // d_v = d_num w + d_vn v / |v| (to shared memory); row term d_v.v
@@ -1122,13 +1287,11 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
         for (int h = 0; h < 2; ++h) {
           const int r = tl.row(i, h);
           const bool in = i < mw && r < rows;
-          float dn = 0.f, dwn = 0.f, wnc = 1.f, dvn = 0.f, vnc = 1.f;
+          float dn = 0.f, qw = 0.f, qv = 0.f;  // d_wn / |w|, d_vn / |v|
           if (in) {
             dn = rs(sm, kDNum)[r];
-            dwn = rs(sm, kDWn)[r];
-            wnc = rs(sm, kWnC)[r];
-            dvn = rs(sm, kDVn)[r];
-            vnc = rs(sm, kVnC)[r];
+            qw = rs(sm, kDWn)[r] / rs(sm, kWnC)[r];
+            qv = rs(sm, kDVn)[r] / rs(sm, kVnC)[r];
           }
           float pt = 0.f;
 #pragma unroll
@@ -1138,9 +1301,9 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
             for (int e = 0; e < 2; ++e) {
               const float w = in ? sm.w[r * sm.ws + tl.col(c) + e] : 0.f;
               const float v = acc[i][c][2 * h + e];
-              dv[e] = dn * w + dvn * v / vnc;
+              dv[e] = dn * w + qv * v;
               pt += dv[e] * v;
-              acc[i][c][2 * h + e] = dn * v + dwn * w / wnc;
+              acc[i][c][2 * h + e] = dn * v + qw * w;
             }
             if (r < nr) st2(sm.dv + r * sm.ws + tl.col(c), dv[0], dv[1]);
           }
@@ -1149,36 +1312,31 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
       float* const out[1] = {rs(sm, kRowT)};
       tc_row_reduce<1>(sm, tl, red, part, out, rows);
     }
-    PHASE_SYNC(6);
+    PHASE(13);
 
     // pass 2: the regions again, chunk by chunk
     for (int r0 = 0; r0 < R; r0 += kChunk) {
       const int nvalid = min(kChunk, R - r0);
-      __syncthreads();
-      PHASE(11);
-      tc_load_chunk(sm, ctx, r0, R, D);
+      const float* cb = next_chunk();
+      PHASE(6);
+      tc_scores<true>(sm, cb, rows, nvalid, scale);  // s and d_a2 = d_v . ctx
       __syncthreads();
       PHASE(7);
-      tc_scores<true>(sm, rows, nvalid, scale);  // s and d_a2 = d_v . ctx
+      tc_chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
       __syncthreads();
       PHASE(8);
-      chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
-      __syncthreads();
-      PHASE(9);
       // d_ctx rows of the chunk: a2^T d_v + (scale d_s)^T w, a K = 2 x rows
       // product; warp w < D/32 owns columns 32w.. of all 32 regions (the
       // second m16 tile skipped when nvalid <= 16).
       if (warp < tl.ncol) {
         float dc[2][4][4] = {};
         const int mr = nvalid > 16 ? 2 : 1, kn = (rows + 7) & ~7;
-        const float* dvb = sm.dv + tl.col0;
-        const float* wb = sm.w + tl.col0;
         const float* const coef[2] = {sm.a2, sm.g};
-        const float* const rowv[2] = {dvb, wb};
+        const float* const rowv[2] = {sm.dv + tl.col0, sm.w + tl.col0};
 #pragma unroll
         for (int p = 0; p < 2; ++p)
           mma3<2, 4>(
-              dc, dc, dc, mr, 4, kn,
+              dc, mr, 4, kn,
               [&](int i, int k0, float (&a)[4]) {
                 frag_a_t(coef[p] + 16 * i, kCs, k0, a);
               },
@@ -1196,7 +1354,7 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
               float* out = dctx_j + (size_t)(r0 + c) * D + tl.col(jj);
               float2 v = make_float2(dc[i][jj][2 * h], dc[i][jj][2 * h + 1]);
               if (it > 0) {  // this thread wrote it for the previous tile
-                const float2 o = *reinterpret_cast<const float2*>(out);
+                const float2 o = ld2(out);
                 v.x += o.x;
                 v.y += o.y;
               }
@@ -1204,11 +1362,11 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
             }
           }
       }
-      PHASE_SYNC(10);
+      PHASE_SYNC(9);
       // d_w += scale d_s . ctx (scale already in g)
-      tc_accumulate(sm, tl, sm.g, acc, rows, nvalid);
+      tc_accumulate(sm, tl, cb, sm.g, acc, rows, nvalid);
+      PHASE_SYNC(10);
     }
-    PHASE_SYNC(11);
     // this (image, tile)'s d_w
     float* dw = dw_part + ((size_t)j * Bt + text0) * L * D;
 #pragma unroll
@@ -1222,13 +1380,17 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
           st2(dw + (size_t)r * D + tl.col(c), acc[i][c][2 * h],
               acc[i][c][2 * h + 1]);
       }
-    PHASE_SYNC(12);
+    PHASE_SYNC(11);
   }
 }
 
-// The tensor-core pass takes D a multiple of kTcCols (32 .. 256): a warp
-// owns 32 columns of the word rows. Smaller D keeps damsm_bwd_kernel.
-bool takes_tc(int D) { return D % kTcCols == 0; }
+// The tensor-core pass takes D a multiple of kTcCols (32 .. 256: a warp
+// owns 32 columns of the word rows), texts of at most kTcMaxL words and
+// tiles of at most kTcMaxRows rows; the wrapper (ops/cuda_damsm.py,
+// takes_tc and plan) chooses it by these shapes and plans its tiles.
+bool takes_tc(int L, int D, int T) {
+  return D % kTcCols == 0 && L <= kTcMaxL && T * L <= kTcMaxRows;
+}
 
 bool valid_dims(int Bi, int Bt, int R, int L, int D, int T) {
   const bool pow2 = D >= 4 && D <= kMaxD && (D & (D - 1)) == 0;
@@ -1280,27 +1442,30 @@ extern "C" int damsm_phase_cycles(unsigned long long* out) {
 }
 #endif
 
-// 1 if damsm_similarity_bwd runs its pass on the tensor cores at this D.
-extern "C" int damsm_bwd_takes_tc(int D) { return attngan::takes_tc(D); }
-
 // Launches the backward pass and the reduction. dctx_part holds S partial
 // d_img arrays (S, Bi, R, D) when S > 1 (unused when S == 1: the pass then
-// writes d_img itself); dw_part is (Bi, Bt, L, D). The pass is chosen by
-// shape: damsm_bwd_tc_kernel where takes_tc(D), else damsm_bwd_kernel.
+// writes d_img itself); dw_part is (Bi, Bt, L, D). tc = 1 runs the pass on
+// the tensor cores (damsm_bwd_tc_kernel, for the shapes takes_tc admits),
+// tc = 0 on the CUDA cores (damsm_bwd_kernel).
 extern "C" int damsm_similarity_bwd(const float* img, const float* words,
                                     const int* mask, const float* gout,
                                     float* d_img, float* d_words,
                                     float* dctx_part, float* dw_part, int Bi,
                                     int Bt, int R, int L, int D, int T, int S,
-                                    float scale, float gamma1, float gamma2,
-                                    void* stream) {
+                                    int tc, float scale, float gamma1,
+                                    float gamma2, void* stream) {
   using namespace attngan;
   const int K = (Bt + T - 1) / T;
-  if (!valid_dims(Bi, Bt, R, L, D, T) || S < 1 || S > K || Bi > 65535)
+  if (!valid_dims(Bi, Bt, R, L, D, T) || S < 1 || S > K || Bi > 65535 ||
+      (tc && !takes_tc(L, D, T)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = takes_tc(D);
-  const auto kernel = tc ? damsm_bwd_tc_kernel : damsm_bwd_kernel;
+  auto kernel = damsm_bwd_kernel;
+  if (tc)
+    kernel = D == 32    ? damsm_bwd_tc_kernel<32>
+             : D == 64  ? damsm_bwd_tc_kernel<64>
+             : D == 128 ? damsm_bwd_tc_kernel<128>
+                        : damsm_bwd_tc_kernel<256>;
   const size_t bytes = (tc ? smem_floats_tc((T * L + 15) & ~15, D)
                            : smem_floats(T * L, D, true)) * sizeof(float);
   cudaError_t err = set_smem((const void*)kernel, bytes);

@@ -13,9 +13,10 @@ tensors and nowhere else.
 wrapper counts the kernel launches it makes: one per forward call, two per
 backward call (the pass over the pairs, then the fixed-order reduction of
 its partial sums). The pass runs on the tensor cores (3xTF32
-``damsm_bwd_tc_kernel``) where D is a multiple of 32, on the CUDA cores
-(``damsm_bwd_kernel``) below that; each backward counter also counts, in
-``tc_launches``, the calls whose pass took the tensor cores.
+``damsm_bwd_tc_kernel``) where ``takes_tc`` admits the shapes (D a multiple
+of 32, texts of at most 8 words), on the CUDA cores (``damsm_bwd_kernel``)
+elsewhere: a choice by shape, made here. Each backward counter also
+counts, in ``tc_launches``, the calls whose pass took the tensor cores.
 """
 
 from __future__ import annotations
@@ -37,8 +38,17 @@ from attngan_torch.ops.damsm_similarity import (
 TILE_FLOATS = 16384   # word rows * D of a text tile: 64 KB of shared memory
 MAX_ROWS = 128        # word rows of a text tile
 MAX_D = 256
+TC_COLS = 32          # the tensor-core pass: a warp owns 32 columns of D,
+TC_MAX_L = 8          # a text's words sit in registers,
+TC_MAX_ROWS = 64      # and a tile holds at most 4 m16 row tiles
 SQUARE_MAX = 128      # the JAX package's square fast path: Bi == Bt <= 128
 H100_SMS = 132
+
+
+def takes_tc(l: int, d: int) -> bool:
+    """Whether the backward's pass runs on the tensor cores at these dims
+    (csrc/damsm_similarity.cu::takes_tc, with plan's tiles)."""
+    return d % TC_COLS == 0 and l <= TC_MAX_L
 
 
 def plan(bi: int, bt: int, l: int, d: int,
@@ -46,11 +56,13 @@ def plan(bi: int, bt: int, l: int, d: int,
     """(T texts per tile, K tiles, S blocks per image in the backward).
 
     A tile holds whole texts, T * L word rows of D floats, at most
-    TILE_FLOATS and MAX_ROWS. The backward runs one block per (image,
-    split) at one block per SM (its shared memory); the image's K tiles are
-    dealt over S splits, and S is the smallest whose waves x tiles per
-    block is within 10% of the least."""
-    rows = min(MAX_ROWS, TILE_FLOATS // d)
+    TILE_FLOATS and MAX_ROWS (TC_MAX_ROWS where the backward takes the
+    tensor cores). The backward runs one block per (image, split) at one
+    block per SM (its shared memory); the image's K tiles are dealt over S
+    splits, and S is the smallest whose waves x tiles per block is within
+    10% of the least."""
+    rows = min(TC_MAX_ROWS if takes_tc(l, d) else MAX_ROWS,
+               TILE_FLOATS // d)
     if l > rows:
         raise ValueError(f"a text of {l} words does not fit a tile of "
                          f"{rows} rows at D={d}")
@@ -90,11 +102,9 @@ def _lib() -> ctypes.CDLL:
     lib.damsm_similarity_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                          f, f, f, p]
     lib.damsm_similarity_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                         i, i, i, f, f, f, p]
-    lib.damsm_bwd_takes_tc.argtypes = [i]
+                                         i, i, i, i, f, f, f, p]
     lib.damsm_similarity_fwd.restype = i
     lib.damsm_similarity_bwd.restype = i
-    lib.damsm_bwd_takes_tc.restype = i
     return lib
 
 
@@ -156,6 +166,7 @@ def _launch_bwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
     bi, r, d = img.shape
     bt, l = mask.shape
     t, _, s = plan(bi, bt, l, d, _num_sms(img.device))
+    tc = takes_tc(l, d)
     f32 = dict(dtype=torch.float32, device=img.device)
     d_img = torch.empty((bi, r, d), **f32)
     d_words = torch.empty((bt, l, d), **f32)
@@ -164,10 +175,10 @@ def _launch_bwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
     status = _lib().damsm_similarity_bwd(
         img.data_ptr(), words.data_ptr(), mask.data_ptr(), g.data_ptr(),
         d_img.data_ptr(), d_words.data_ptr(), dctx_part.data_ptr(),
-        dw_part.data_ptr(), bi, bt, r, l, d, t, s, 1.0 / math.sqrt(d),
-        gamma1, gamma2, _stream(img))
+        dw_part.data_ptr(), bi, bt, r, l, d, t, s, int(tc),
+        1.0 / math.sqrt(d), gamma1, gamma2, _stream(img))
     _build.check(status, "damsm_similarity_bwd")
-    return d_img, d_words, bool(_lib().damsm_bwd_takes_tc(d))
+    return d_img, d_words, tc
 
 
 def _backward(counter, img, words, mask, g, gamma1, gamma2):

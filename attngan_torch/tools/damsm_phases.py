@@ -24,9 +24,10 @@ import torch
 
 from attngan_torch.ops import _build, cuda_damsm
 
-PHASES = ["load_tile", "p1_load_chunk", "p1_scores", "p1_word_softmax",
-          "p1_region_softmax", "p1_v", "cosine_and_d_v", "p2_load_chunk",
-          "p2_scores", "p2_softmax_bwd", "p2_d_ctx", "p2_d_w", "d_w_store"]
+# the kernel's PHASE slots, in order
+PHASES = ["load_tile", "p1_chunk_wait", "p1_scores", "p1_softmax", "p1_v",
+          "v_row_sums", "p2_chunk_wait", "p2_scores", "p2_softmax_bwd",
+          "p2_d_ctx", "p2_d_w", "d_w_store", "cosine_words_bwd", "d_v"]
 
 
 def build_probe() -> ctypes.CDLL:
@@ -40,8 +41,7 @@ def build_probe() -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(out)
     real = cuda_damsm._lib()
-    for name in ("damsm_similarity_fwd", "damsm_similarity_bwd",
-                 "damsm_bwd_takes_tc"):
+    for name in ("damsm_similarity_fwd", "damsm_similarity_bwd"):
         getattr(lib, name).argtypes = getattr(real, name).argtypes
         getattr(lib, name).restype = getattr(real, name).restype
     lib.damsm_phase_cycles.argtypes = [ctypes.c_void_p]

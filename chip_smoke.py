@@ -154,11 +154,11 @@ def ptxas_usage(log: str) -> list:
     for line in log.splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"[a-z_]+kernel(?:ILi\d+ELi\d+E)?",
+            name = re.search(r"[a-z_]+kernel(?:I(?:Li\d+E)+E)?",
                              entry.group(1))
-            rows.append([re.sub(r"ILi(\d+)ELi(\d+)E", r"<\1,\2>",
-                                name.group(0)) if name else entry.group(1),
-                         None, None, None])
+            rows.append([re.sub(r"I((?:Li\d+E)+)E", lambda m: "<" + ",".join(
+                re.findall(r"Li(\d+)E", m.group(1))) + ">", name.group(0))
+                         if name else entry.group(1), None, None, None])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if spill and rows:

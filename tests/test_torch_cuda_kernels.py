@@ -243,7 +243,7 @@ def _counts(counter):
     (4, 6, 8, 33, 256),        # ragged R: 1 region in the last chunk
     (3, 5, 8, 17, 256),        # R < one chunk, n8 tiles skipped
     (4, 9, 3, 40, 256),        # L=3: 63-row tiles, padded to 64
-    (5, 30, 5, 50, 128),       # L=5 at D=128: 125-row tiles, two row bands
+    (5, 30, 5, 50, 128),       # L=5 at D=128: 60-row tiles, three of them
     (3, 4, 5, 20, 32),         # D=32: one warp per row band
 ])
 def test_damsm_backward_tensor_core_pass(cuda, bi, bt, l, r, d):
