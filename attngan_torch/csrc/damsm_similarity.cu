@@ -987,7 +987,9 @@ __device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
 }
 
 // Softmax #1 of one (text, region): the text's L scores of region `lane`
-// (rows base ..) to a1 = e1 / max(sum, 1e-8), in x.
+// (rows base ..) to a1 = e1 / max(sum, 1e-8), in x (one reciprocal, then
+// a product per word: a rounding apart from the plain version's quotient;
+// both passes use this one function, so they agree).
 __device__ __forceinline__ void text_a1(const Smem& sm, int base, int L,
                                         float (&x)[kTcMaxL]) {
   const int lane = threadIdx.x & 31;
@@ -1005,10 +1007,10 @@ __device__ __forceinline__ void text_a1(const Smem& sm, int base, int L,
       x[l] = expf(x[l] - m);
       sum += x[l];
     }
-  const float den = fmaxf(sum, kEps);
+  const float inv = 1.f / fmaxf(sum, kEps);
 #pragma unroll
   for (int l = 0; l < kTcMaxL; ++l)
-    if (l < L) x[l] = x[l] / den;
+    if (l < L) x[l] *= inv;
 }
 
 // Pass 1's softmaxes for one chunk, a warp per text and a lane per region:
@@ -1343,24 +1345,35 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
               [&](int jj, int k0, float (&b)[2]) {
                 frag_b(rowv[p] + 8 * jj, sm.ws, k0, b);
               });
+        PHASE(14);
+        // add what this thread wrote for the previous tiles, a 16-region
+        // half at a time: its loads first (one round trip to L2, where
+        // load-store pairs through one pointer would each wait on the
+        // store before), then its stores
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i) {
+          float2 old[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = 16 * i + tl.g + 8 * h;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              old[h][jj] = it > 0 && i < mr && c < nvalid
+                               ? ld2(dctx_j + (size_t)(r0 + c) * D +
+                                     tl.col(jj))
+                               : make_float2(0.f, 0.f);
+          }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int c = 16 * i + tl.g + 8 * h;
             if (i >= mr || c >= nvalid) continue;
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              float* out = dctx_j + (size_t)(r0 + c) * D + tl.col(jj);
-              float2 v = make_float2(dc[i][jj][2 * h], dc[i][jj][2 * h + 1]);
-              if (it > 0) {  // this thread wrote it for the previous tile
-                const float2 o = ld2(out);
-                v.x += o.x;
-                v.y += o.y;
-              }
-              *reinterpret_cast<float2*>(out) = v;
-            }
+            for (int jj = 0; jj < 4; ++jj)
+              st2(dctx_j + (size_t)(r0 + c) * D + tl.col(jj),
+                  old[h][jj].x + dc[i][jj][2 * h],
+                  old[h][jj].y + dc[i][jj][2 * h + 1]);
           }
+        }
       }
       PHASE_SYNC(9);
       // d_w += scale d_s . ctx (scale already in g)

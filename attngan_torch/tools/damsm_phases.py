@@ -27,7 +27,8 @@ from attngan_torch.ops import _build, cuda_damsm
 # the kernel's PHASE slots, in order
 PHASES = ["load_tile", "p1_chunk_wait", "p1_scores", "p1_softmax", "p1_v",
           "v_row_sums", "p2_chunk_wait", "p2_scores", "p2_softmax_bwd",
-          "p2_d_ctx", "p2_d_w", "d_w_store", "cosine_words_bwd", "d_v"]
+          "p2_d_ctx_store", "p2_d_w", "d_w_store", "cosine_words_bwd", "d_v",
+          "p2_d_ctx_mma"]
 
 
 def build_probe() -> ctypes.CDLL:

@@ -30,6 +30,7 @@ from attngan_torch.ops.cuda_damsm import (
     damsm_similarity_bwd_square,
     damsm_similarity_bwd_tiled,
     plan,
+    takes_tc,
 )
 from attngan_torch.ops.damsm_similarity import (
     similarity_bwd_plain,
@@ -177,10 +178,20 @@ def test_text_with_no_word_gets_zero_gradient(rng):
     (64, 64, 8, 256, (8, 8, 2)),      # full width: 128 blocks, 4 tiles each
     (192, 192, 8, 256, (8, 24, 2)),
     (16, 64, 8, 256, (8, 8, 8)),      # the sharded shape: one tile a block
-    (4, 5, 4, 16, (32, 1, 1)),
+    (4, 5, 4, 16, (32, 1, 1)),        # D=16: the CUDA-core pass, 128 rows
+    (5, 30, 5, 128, (12, 3, 3)),      # tensor-core tiles: at most 64 rows
+    (4, 5, 12, 128, (10, 1, 1)),      # 12 words: the CUDA-core pass
 ])
 def test_plan_fills_the_card(bi, bt, l, d, want):
     assert plan(bi, bt, l, d) == want
+
+
+@pytest.mark.parametrize("l,d,want", [(8, 256, True), (3, 32, True),
+                                      (8, 16, False), (9, 256, False)])
+def test_backward_form_by_shape(l, d, want):
+    """The pass takes the tensor cores at D a multiple of 32 and texts of
+    at most 8 words (their softmaxes hold a text in registers)."""
+    assert takes_tc(l, d) == want
 
 
 def test_plan_rejects_texts_longer_than_a_tile():
