@@ -7,8 +7,8 @@
 // rectangular or larger batches). One backward design serves both cases.
 //
 // Per (image j, text i) pair, with ctx = img[j] (R, D) and w = words[i]
-// (L, D), everything in fp32 (the products on the CUDA cores: TF32 would
-// change the loss):
+// (L, D), everything in fp32 (the forward's products on the CUDA cores;
+// 1xTF32 would change the loss):
 //   s[l,r] = w[l].ctx[r] / sqrt(D) + bias[l]       bias = -1e9 at padding
 //   a1     = softmax over the L words of each region (shift: the group max),
 //            e1 / max(sum, 1e-8)
@@ -51,32 +51,44 @@
 // image are split over several blocks to fill the card, the d_ctx
 // partials too). Reruns give the same bits.
 //
-// damsm_bwd_tc_kernel: the same backward pass with its products on the
+// damsm_bwd_tc_kernel<D>: the same backward pass with its products on the
 // tensor cores. It replaces the same TPU kernels (pallas_damsm.py:158
-// _image_cell_bwd_kernel, :192 _tiled_bwd_kernel) for D a multiple of 32;
-// damsm_bwd_kernel keeps smaller D (a choice by shape, in
+// _image_cell_bwd_kernel, :192 _tiled_bwd_kernel) for D a multiple of 32
+// and texts of at most 8 words; damsm_bwd_kernel keeps other shapes (a
+// choice by shape, made in ops/cuda_damsm.py::takes_tc and passed to
 // damsm_similarity_bwd). What bounds the pass is operations: per (image,
 // 64-row tile, 32-region chunk) it does seven 64 x 32 x 256 products (the
-// scores in both passes, v, d_a2, d_ctx's two, d_w), 29 GFLOP of fp32 work
-// at B = 64, 0.43 ms at the CUDA cores' 67 TFLOP/s. The design:
+// scores in both passes, v, d_a2, d_ctx's two, d_w; the fp32 bound counts
+// six), 29 GFLOP of fp32 work at B = 64, 0.43 ms at the CUDA cores' 67
+// TFLOP/s. The design:
 //   - the products are mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
-//     split once, as its fragment is loaded, into TF32 hi + lo, and a step
-//     adds lo.hi + hi.lo, then hi.hi (relative error ~2^-22; 1xTF32, 2^-11,
-//     would move the loss). Three TF32 products per fp32 product at 495
-//     TFLOP/s bound the work as done at 0.18 ms at B = 64;
+//     split once, as its fragment is loaded, into TF32 hi + lo (Veltkamp's
+//     split, four fp32 operations), and a step adds lo.hi, hi.lo, then
+//     hi.hi (relative error ~2^-21; 1xTF32, 2^-11, moves the loss:
+//     tests/test_torch_port_damsm_tf32.py). Three TF32 products per fp32
+//     product at 495 TFLOP/s bound the work as done at 0.18 ms at B = 64;
 //   - v, then d_w, stay in the mma accumulators: warp w holds a 64 x 32
 //     share of the tile's rows (TcTile), so the online softmax's rescale by
 //     alpha[row] is a multiply in registers and the row sums (w.v, v.v,
 //     d_v.v) are two quad shuffles and one pass over shared memory;
-//   - fragments come straight from the shared-memory rows the CUDA-core
-//     form already keeps (padded to D + 4 and kCs floats): the scores'
-//     [row][d] operands land on bank 4g + t, and the products that sum over
-//     rows take their depth in the order of kperm to land on 8t + g;
+//   - fragments load from shared memory without bank conflicts: rows of w,
+//     d_v and the chunk are padded to D + 8 floats, the scores take their
+//     depth in pair order (8-byte loads), v and d_w read the chunk by
+//     rows; only d_ctx's a2 / d_s operand is read at a 2-way conflict;
+//   - the score products split their depth over pairs of warps (4 m16 x 4
+//     n8 tiles a warp), combined in place in a fixed order;
+//   - the image's chunks stream through a two-stage cp.async ring (two 32-
+//     region stages fit once a2 shares the score array): the next chunk is
+//     in flight while one is computed, across both passes and every tile;
+//   - the softmaxes run a warp per text and a lane per region, the text's
+//     words in registers and the rows' shuffle reductions interleaved;
 //   - n8 tiles and k8 steps wholly past the chunk's last region are not
 //     issued: R = 289 leaves 1 region in the tenth chunk, whose products
 //     cost a quarter of a full chunk's (d_ctx's, by m16 tiles, a half);
-//   - the pass-2 scores are one M = 2 x 16 product per warp tile ([w; d_v]
-//     against the chunk), so each ctx fragment is loaded once for both.
+//   - d_ctx is summed over a block's tiles in global memory, every load of
+//     a 16-region half before its stores; no float atomics: the same bits
+//     on every launch. One block of 8 warps per SM (224 KB of shared
+//     memory), 251-255 registers, no spills (chip_smoke.py checks).
 
 #include <math.h>
 #include <stdint.h>
@@ -482,47 +494,6 @@ __device__ void words_bwd(const Smem& sm, const float* g_row, int texts,
   __syncthreads();
 }
 
-// Pass 2's softmax chain for one chunk, per (text, region): from the
-// scores in s and d_a2 in g, leaves a1 in s, a2 in a2 and scale * d_s in g
-// (a2 and g zero past nvalid).
-__device__ void chunk_bwd(const Smem& sm, int texts, int L, int nvalid,
-                          float gamma1, float scale) {
-  for (int p = threadIdx.x; p < texts * kChunk; p += kThreads) {
-    const int c = p % kChunk, base = (p / kChunk) * L;
-    if (c >= nvalid) {
-      for (int l = 0; l < L; ++l) {
-        sm.a2[(base + l) * kCs + c] = 0.f;
-        sm.g[(base + l) * kCs + c] = 0.f;
-      }
-      continue;
-    }
-    float m = -INFINITY;
-    for (int l = 0; l < L; ++l) m = fmaxf(m, sm.s[(base + l) * kCs + c]);
-    float sum = 0.f;
-    for (int l = 0; l < L; ++l) {
-      float* sp = sm.s + (base + l) * kCs + c;
-      *sp = expf(*sp - m);
-      sum += *sp;
-    }
-    const float den = fmaxf(sum, kEps);
-    float inner = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int r = base + l;
-      const float a1 = sm.s[r * kCs + c] / den;
-      const float a2 = expf(a1 * gamma1 - rs(sm, kM2)[r]) / rs(sm, kL2)[r];
-      const float d_a1 = a2 * (sm.g[r * kCs + c] - rs(sm, kRowT)[r]) * gamma1;
-      sm.s[r * kCs + c] = a1;
-      sm.a2[r * kCs + c] = a2;
-      sm.g[r * kCs + c] = d_a1;
-      inner += d_a1 * a1;
-    }
-    for (int l = 0; l < L; ++l) {
-      const int r = base + l;
-      sm.g[r * kCs + c] = scale * (sm.s[r * kCs + c] * (sm.g[r * kCs + c] - inner));
-    }
-  }
-}
-
 // Block (split s, image j) walks text tiles s, s + S, ... < K. d_ctx of
 // image j accumulates over them into dctx (its own slice); each tile's d_w
 // goes to dw_part[j].
@@ -581,7 +552,43 @@ damsm_bwd_kernel(const float* __restrict__ img, const float* __restrict__ words,
       __syncthreads();
       chunk_scores<true>(sm, rows, D, scale);  // s and d_a2 = d_v . ctx
       __syncthreads();
-      chunk_bwd(sm, texts, L, nvalid, gamma1, scale);
+      // per (text, region): a1, a2, d_a1, then d_s over the text's words
+      for (int p = threadIdx.x; p < texts * kChunk; p += kThreads) {
+        const int c = p % kChunk, base = (p / kChunk) * L;
+        if (c >= nvalid) {
+          for (int l = 0; l < L; ++l) {
+            sm.a2[(base + l) * kCs + c] = 0.f;
+            sm.g[(base + l) * kCs + c] = 0.f;
+          }
+          continue;
+        }
+        float m = -INFINITY;
+        for (int l = 0; l < L; ++l) m = fmaxf(m, sm.s[(base + l) * kCs + c]);
+        float sum = 0.f;
+        for (int l = 0; l < L; ++l) {
+          float* sp = sm.s + (base + l) * kCs + c;
+          *sp = expf(*sp - m);
+          sum += *sp;
+        }
+        const float den = fmaxf(sum, kEps);
+        float inner = 0.f;
+        for (int l = 0; l < L; ++l) {
+          const int r = base + l;
+          const float a1 = sm.s[r * kCs + c] / den;
+          const float a2 =
+              expf(a1 * gamma1 - rs(sm, kM2)[r]) / rs(sm, kL2)[r];
+          const float d_a1 =
+              a2 * (sm.g[r * kCs + c] - rs(sm, kRowT)[r]) * gamma1;
+          sm.s[r * kCs + c] = a1;
+          sm.a2[r * kCs + c] = a2;
+          sm.g[r * kCs + c] = d_a1;
+          inner += d_a1 * a1;
+        }
+        for (int l = 0; l < L; ++l) {
+          const int r = base + l;
+          sm.g[r * kCs + c] = scale * (sm.s[r * kCs + c] * (sm.g[r * kCs + c] - inner));
+        }
+      }
       __syncthreads();
       // d_ctx rows of this chunk: sum over the tile's rows of
       // a2 d_v + scale d_s w. The thread owns four columns of cpt
@@ -1066,7 +1073,7 @@ __device__ __forceinline__ void tc_softmax_fwd(const Smem& sm, int texts,
 
 // Pass 2's chain for one chunk, a warp per text and a lane per region:
 // from the scores in s and d_a2 in g, leaves a2 in s and scale * d_s in g
-// (zeros past nvalid), as chunk_bwd does (every load before any store).
+// (zeros past nvalid), as damsm_bwd_kernel's pass 2 does (every load before any store).
 __device__ __forceinline__ void tc_chunk_bwd(const Smem& sm, int texts, int L,
                                              int nvalid, float gamma1,
                                              float scale) {
