@@ -7,8 +7,9 @@
 // rectangular or larger batches). One backward design serves both cases.
 //
 // Per (image j, text i) pair, with ctx = img[j] (R, D) and w = words[i]
-// (L, D), everything in fp32 (the forward's products on the CUDA cores;
-// 1xTF32 would change the loss):
+// (L, D), everything in fp32 in and out (the products in fp32 on the CUDA
+// cores, or in 3xTF32 on the tensor cores, below; 1xTF32 would change the
+// loss: tests/test_torch_port_damsm_tf32.py):
 //   s[l,r] = w[l].ctx[r] / sqrt(D) + bias[l]       bias = -1e9 at padding
 //   a1     = softmax over the L words of each region (shift: the group max),
 //            e1 / max(sum, 1e-8)
@@ -89,6 +90,19 @@
 //     a 16-region half before its stores; no float atomics: the same bits
 //     on every launch. One block of 8 warps per SM (224 KB of shared
 //     memory), 251-255 registers, no spills (chip_smoke.py checks).
+//
+// damsm_fwd_tc_kernel<D>: the forward on the tensor cores, replacing
+// damsm_fwd_kernel (pallas_damsm.py:265 _similarity_grid, body :147) at
+// the same shapes as the backward's pass. Its chain is the backward's pass
+// 1 and cosine terms, one __forceinline__ function (tc_pass1) that both
+// kernels run, so the forward's sims and the backward's recompute come
+// from the same instructions; it ends in Eq. 10 per text where the
+// backward goes on to words_bwd. The forward's two products, 9.7 GFLOP at
+// B = 64, bound it at 0.145 ms on the CUDA cores and 0.059 ms as 3xTF32
+// on the tensor cores. A block per (image, split of the text tiles), as
+// the backward plans it (ops/cuda_damsm.py::plan), with the ring running
+// across the block's tiles; with no d_v and no g its shared memory is
+// 149 KB, one block per SM.
 
 #include <math.h>
 #include <stdint.h>
@@ -834,7 +848,9 @@ __device__ __forceinline__ void mma3(float (&acc)[MW][NW][4], int mw, int nw,
 // The thread's rows and columns of its warp's 64 x 32 share of a (rows x D)
 // array held as acc[i][j][e]: row row0 + 16i + g + 8(e / 2), column
 // col0 + 8j + 2t + e % 2. Warp w holds rows 64 (w / (D/32)) and columns
-// 32 (w % (D/32)) onwards: rows * D <= kTileFloats fits 8 warps.
+// 32 (w % (D/32)) onwards: rows * D <= kTileFloats fits 8 warps. A kernel
+// whose tiles hold at most 16 MT rows keeps MT of the share's four m16
+// tiles (acc[MT][4][4]; the forward's 32-row form: MT = 2).
 struct TcTile {
   int g, t, wn, ncol, row0, col0;
   __device__ explicit TcTile(int D) {
@@ -848,9 +864,10 @@ struct TcTile {
   }
   __device__ int row(int i, int h) const { return row0 + 16 * i + g + 8 * h; }
   __device__ int col(int j) const { return col0 + 8 * j + 2 * t; }
-  // m16 tiles of the share that hold rows below `rows`
+  // m16 tiles of the share (of its first MT) that hold rows below `rows`
+  template <int MT = 4>
   __device__ int tiles(int rows) const {
-    return min(4, max(0, (rows - row0 + 15) / 16));
+    return min(MT, max(0, (rows - row0 + 15) / 16));
   }
 };
 
@@ -858,26 +875,31 @@ constexpr int kTcMaxRows = 64;  // word rows of a tensor-core tile (4 m16)
 constexpr int kTcMaxL = 8;      // words of a text its softmaxes hold in
                                 // registers (DataConfig.max_seqlen)
 
-// The tensor-core pass's shared memory, in floats: w and dv [nr][D + 8]
-// (rows padded to the pair-order loads' stride), a ring of two region
-// chunks [2][kChunk][D + 8], s and g [nr][kCs] (pass 2 leaves a2 in s), the
-// row scalars, the texts' d_agg and tc_row_reduce's slots.
-__host__ __device__ inline size_t smem_floats_tc(int nr, int D) {
-  return (size_t)(2 * nr + 2 * kChunk) * (D + 8) + 2 * (size_t)nr * kCs +
+// The tensor-core kernels' shared memory, in floats: w and (backward) dv
+// [nr][D + 8] (rows padded to the pair-order loads' stride), a ring of two
+// region chunks [2][kChunk][D + 8], s and (backward) g [nr][kCs] (pass 2
+// leaves a2 in s), the row scalars, the texts' d_agg and tc_row_reduce's
+// slots. The forward has no dv and no g: 149 KB at nr = 64, D = 256.
+__host__ __device__ inline size_t smem_floats_tc(int nr, int D, bool bwd) {
+  const int arrays = bwd ? 2 : 1;
+  return (size_t)(arrays * nr + 2 * kChunk) * (D + 8) +
+         arrays * (size_t)nr * kCs +
          (size_t)nr * (kNumRowScalars + 1 + 2 * kTcSlots);
 }
 
-__device__ inline Smem carve_tc(float* base, int nr, int D, float*& red) {
+__device__ inline Smem carve_tc(float* base, int nr, int D, bool bwd,
+                                float*& red) {
   Smem sm;
   sm.nr = nr;
   sm.ws = D + 8;
   sm.w = base;
-  sm.dv = sm.w + (size_t)nr * sm.ws;
-  sm.ctx = sm.dv + (size_t)nr * sm.ws;  // ring stage 0; stage 1 follows
+  sm.dv = bwd ? sm.w + (size_t)nr * sm.ws : nullptr;
+  // ring stage 0; stage 1 follows
+  sm.ctx = sm.w + (size_t)(bwd ? 2 : 1) * nr * sm.ws;
   sm.s = sm.ctx + 2 * (size_t)kChunk * sm.ws;
   sm.a2 = sm.s;
-  sm.g = sm.s + (size_t)nr * kCs;
-  sm.rs = sm.g + (size_t)nr * kCs;
+  sm.g = bwd ? sm.s + (size_t)nr * kCs : nullptr;
+  sm.rs = sm.s + (size_t)(bwd ? 2 : 1) * nr * kCs;
   sm.text = sm.rs + (size_t)kNumRowScalars * nr;
   sm.red = nullptr;
   red = sm.text + nr;
@@ -978,15 +1000,16 @@ __device__ __forceinline__ void tc_scores(const Smem& sm, const float* cb,
 // acc += coef . ctx over the chunk cb's regions (coef [row][kCs], zero
 // past nvalid and in the rows past the tile's up to the next multiple of
 // 16). k8 steps wholly past nvalid skipped.
+template <int MT>
 __device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
                                               const float* cb,
                                               const float* coef,
-                                              float (&acc)[4][4][4], int rows,
+                                              float (&acc)[MT][4][4], int rows,
                                               int nvalid) {
   const float* cc = cb + tl.col0;
   const float* ab = coef + tl.row0 * kCs;
-  mma3<4, 4>(
-      acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
+  mma3<MT, 4>(
+      acc, tl.tiles<MT>(rows), 4, (nvalid + 7) & ~7,
       [&](int i, int k0, float (&a)[4]) {
         frag_a(ab + 16 * i * kCs, kCs, k0, a);
       },
@@ -1103,19 +1126,19 @@ __device__ __forceinline__ void tc_chunk_bwd(const Smem& sm, int texts, int L,
 }
 
 // out_p[row] = sum over the row's D columns of part[p] (the thread's two
-// rows per m16 tile): over the lane quad by shuffles, then over the D/32
-// warps of the row in a fixed order. red holds NP x nr x kTcSlots floats.
-// Block-wide (syncs).
-template <int NP>
+// rows per m16 tile, MT tiles): over the lane quad by shuffles, then over
+// the D/32 warps of the row in a fixed order. red holds NP x nr x kTcSlots
+// floats. Block-wide (syncs).
+template <int NP, int MT>
 __device__ __forceinline__ void tc_row_reduce(const Smem& sm, const TcTile& tl,
                                               float* red,
-                                              float (&part)[NP][4][2],
+                                              float (&part)[NP][MT][2],
                                               float* const (&out)[NP],
                                               int rows) {
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float x = part[p][i][h];
@@ -1138,9 +1161,10 @@ __device__ __forceinline__ void tc_row_reduce(const Smem& sm, const TcTile& tl,
 }
 
 // Built with -DDAMSM_PHASE_CLOCKS (attngan_torch/tools/damsm_phases.py),
-// thread 0 of each block of damsm_bwd_tc_kernel adds the cycles of each
+// thread 0 of each block of the tensor-core kernels adds the cycles of each
 // phase to g_phase_cycles; PHASE_SYNC adds a barrier first, so that the
-// phase ends for every warp. Without the flag both are empty.
+// phase ends for every warp. Without the flag both are empty, and the
+// clock (passed to tc_pass1) is an empty struct.
 #ifdef DAMSM_PHASE_CLOCKS
 __device__ unsigned long long g_phase_cycles[16];
 struct PhaseClock {
@@ -1156,10 +1180,88 @@ struct PhaseClock {
 #define PHASE(k) clock.mark(k)
 #define PHASE_SYNC(k) (__syncthreads(), clock.mark(k))
 #else
-#define PHASE_CLOCK
+struct PhaseClock {};
+#define PHASE_CLOCK PhaseClock clock
 #define PHASE(k) ((void)0)
 #define PHASE_SYNC(k) ((void)0)
 #endif
+
+// Pass 1 of the chain for one tile on the tensor cores, and its cosine
+// terms: the tile's texts against every chunk of the image that
+// next_chunk() hands out (it waits for the chunk and puts the next one in
+// flight), leaving v = a2 . ctx in acc (TcTile layout, MT m16 tiles; acc
+// zero on entry) and per row w.v (kNum), v.v (kVV) and Eq. 10's term
+// mask exp(gamma2 cos) (kExpG). The forward and the backward's recompute
+// run this one function, so they give the same values. Block-wide; ends
+// with a barrier.
+template <int MT, class NextChunk>
+__device__ __forceinline__ void tc_pass1(const Smem& sm, const TcTile& tl,
+                                         float* red, NextChunk& next_chunk,
+                                         PhaseClock& clock,
+                                         float (&acc)[MT][4][4], int texts,
+                                         int rows, int R, int L, float scale,
+                                         float gamma1, float gamma2) {
+  const int mw = tl.tiles<MT>(rows);
+  for (int r0 = 0; r0 < R; r0 += kChunk) {
+    const int nvalid = min(kChunk, R - r0);
+    const float* cb = next_chunk();
+    PHASE(1);
+    tc_scores<false>(sm, cb, rows, nvalid, scale);
+    __syncthreads();
+    PHASE(2);
+    tc_softmax_fwd(sm, texts, L, nvalid, gamma1);
+    __syncthreads();
+    PHASE(3);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tl.row(i, h);
+        const float a = i < mw && r < rows ? rs(sm, kAlpha)[r] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[i][c][2 * h] *= a;
+          acc[i][c][2 * h + 1] *= a;
+        }
+      }
+    tc_accumulate(sm, tl, cb, sm.s, acc, rows, nvalid);
+    PHASE_SYNC(4);
+  }
+
+  // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
+  {
+    float part[2][MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tl.row(i, h);
+        const bool in = i < mw && r < rows;
+        const float inv = in ? 1.f / rs(sm, kL2)[r] : 1.f;
+        float pn = 0.f, pv = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[i][c][2 * h + e] * inv;
+            acc[i][c][2 * h + e] = v;
+            if (in) pn += sm.w[r * sm.ws + tl.col(c) + e] * v;
+            pv += v * v;
+          }
+        part[0][i][h] = pn;
+        part[1][i][h] = pv;
+      }
+    float* const out[2] = {rs(sm, kNum), rs(sm, kVV)};
+    tc_row_reduce<2>(sm, tl, red, part, out, rows);
+  }
+  PHASE(5);
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
+    const float cos = rs(sm, kNum)[r] / fmaxf(wn * vn, kEps);
+    rs(sm, kExpG)[r] = expf(gamma2 * cos) * rs(sm, kMaskF)[r];
+  }
+  __syncthreads();
+}
 
 // The same pass as damsm_bwd_kernel, its products on the tensor cores
 // (mma3) with v and then d_w in the mma accumulators (TcTile layout), its
@@ -1187,7 +1289,7 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
   const float* ctx = img + (size_t)j * R * D;
   float* dctx_j = dctx + ((size_t)s_idx * Bi + j) * R * D;
   float* red;
-  const Smem sm = carve_tc(reinterpret_cast<float*>(smem4), nr, D, red);
+  const Smem sm = carve_tc(reinterpret_cast<float*>(smem4), nr, D, true, red);
   const TcTile tl(D);
   const int warp = threadIdx.x >> 5;
   PHASE_CLOCK;
@@ -1222,67 +1324,10 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
       sm.s[rows * kCs + i] = sm.g[rows * kCs + i] = 0.f;
     PHASE_SYNC(0);
 
-    // pass 1: v (not yet divided by the softmax #2 sum) in acc
+    // pass 1: v in acc, the cosine terms per row
     float acc[4][4][4] = {};
-    for (int r0 = 0; r0 < R; r0 += kChunk) {
-      const int nvalid = min(kChunk, R - r0);
-      const float* cb = next_chunk();
-      PHASE(1);
-      tc_scores<false>(sm, cb, rows, nvalid, scale);
-      __syncthreads();
-      PHASE(2);
-      tc_softmax_fwd(sm, texts, L, nvalid, gamma1);
-      __syncthreads();
-      PHASE(3);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = tl.row(i, h);
-          const float a = i < mw && r < rows ? rs(sm, kAlpha)[r] : 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[i][c][2 * h] *= a;
-            acc[i][c][2 * h + 1] *= a;
-          }
-        }
-      tc_accumulate(sm, tl, cb, sm.s, acc, rows, nvalid);
-      PHASE_SYNC(4);
-    }
-
-    // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
-    {
-      float part[2][4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = tl.row(i, h);
-          const bool in = i < mw && r < rows;
-          const float inv = in ? 1.f / rs(sm, kL2)[r] : 1.f;
-          float pn = 0.f, pv = 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float v = acc[i][c][2 * h + e] * inv;
-              acc[i][c][2 * h + e] = v;
-              if (in) pn += sm.w[r * sm.ws + tl.col(c) + e] * v;
-              pv += v * v;
-            }
-          part[0][i][h] = pn;
-          part[1][i][h] = pv;
-        }
-      float* const out[2] = {rs(sm, kNum), rs(sm, kVV)};
-      tc_row_reduce<2>(sm, tl, red, part, out, rows);
-    }
-    PHASE(5);
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const float wn = sqrtf(rs(sm, kWW)[r]), vn = sqrtf(rs(sm, kVV)[r]);
-      const float cos = rs(sm, kNum)[r] / fmaxf(wn * vn, kEps);
-      rs(sm, kExpG)[r] = expf(gamma2 * cos) * rs(sm, kMaskF)[r];
-    }
-    __syncthreads();
+    tc_pass1(sm, tl, red, next_chunk, clock, acc, texts, rows, R, L, scale,
+             gamma1, gamma2);
     words_bwd(sm, gout + (size_t)j * Bt + text0, texts, rows, L, gamma2);
     PHASE(12);
 
@@ -1404,10 +1449,71 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
   }
 }
 
-// The tensor-core pass takes D a multiple of kTcCols (32 .. 256: a warp
+// The forward (K4) on the tensor cores: the backward's pass 1 and cosine
+// terms (tc_pass1), then Eq. 10 per text. Block (split s, image j) walks
+// the text tiles s, s + S, ... < K, as the backward does, with the
+// image's chunks streaming through the two-stage cp.async ring across
+// every tile of the block (once per tile). Same padding and D template as
+// the backward. Tiles of up to 64 rows (MT = 4) take one block per SM
+// (149 KB of shared memory); tiles of up to 32 rows (MT = 2: 110 KB, 32
+// accumulators a thread) two.
+template <int D, int MT>
+__global__ void __launch_bounds__(kThreads, 4 / MT)
+damsm_fwd_tc_kernel(const float* __restrict__ img,
+                    const float* __restrict__ words,
+                    const int* __restrict__ mask, float* __restrict__ sims,
+                    int Bt, int R, int L, int T, int S, float scale,
+                    float gamma1, float gamma2) {
+  extern __shared__ float4 smem4[];
+  const int s_idx = blockIdx.x, j = blockIdx.y;
+  const int K = (Bt + T - 1) / T;
+  const int nr = (T * L + 15) & ~15;
+  const float* ctx = img + (size_t)j * R * D;
+  float* red;
+  const Smem sm = carve_tc(reinterpret_cast<float*>(smem4), nr, D, false,
+                           red);
+  const TcTile tl(D);
+  PHASE_CLOCK;
+
+  // the chunk stream: chunks 0 .. nc - 1 once per tile
+  const int nc = (R + kChunk - 1) / kChunk;
+  const int total = nc * ((K - s_idx + S - 1) / S);
+  int n = 0;
+  tc_issue_chunk(sm.ctx, sm.ws, ctx, 0, R, D);
+  auto next_chunk = [&]() {  // as in damsm_bwd_tc_kernel
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (n + 1 < total)
+      tc_issue_chunk(sm.ctx + ((n + 1) & 1) * kChunk * sm.ws, sm.ws, ctx,
+                     (n + 1) % nc * kChunk, R, D);
+    return sm.ctx + (n++ & 1) * kChunk * sm.ws;
+  };
+
+  for (int k = s_idx; k < K; k += S) {
+    const int text0 = k * T;
+    const int texts = min(T, Bt - text0);
+    const int rows = texts * L;
+    __syncthreads();  // the previous tile is consumed
+    load_tile(sm, words, mask, text0, rows, L, D);
+    for (int i = threadIdx.x; i < (nr - rows) * sm.ws; i += kThreads)
+      sm.w[rows * sm.ws + i] = 0.f;  // pad rows: zeros in every product
+    PHASE_SYNC(0);
+    float acc[MT][4][4] = {};
+    tc_pass1(sm, tl, red, next_chunk, clock, acc, texts, rows, R, L, scale,
+             gamma1, gamma2);
+    for (int t = threadIdx.x; t < texts; t += kThreads) {
+      float agg = 0.f;
+      for (int l = 0; l < L; ++l) agg += rs(sm, kExpG)[t * L + l];
+      sims[(size_t)j * Bt + text0 + t] = logf(agg);
+    }
+    PHASE(12);
+  }
+}
+
+// The tensor-core kernels take D a multiple of kTcCols (32 .. 256: a warp
 // owns 32 columns of the word rows), texts of at most kTcMaxL words and
 // tiles of at most kTcMaxRows rows; the wrapper (ops/cuda_damsm.py,
-// takes_tc and plan) chooses it by these shapes and plans its tiles.
+// takes_tc and plan) chooses them by these shapes and plans their tiles.
 bool takes_tc(int L, int D, int T) {
   return D % kTcCols == 0 && L <= kTcMaxL && T * L <= kTcMaxRows;
 }
@@ -1425,6 +1531,14 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <int MT>
+auto fwd_tc_kernel(int D) {
+  return D == 32    ? damsm_fwd_tc_kernel<32, MT>
+         : D == 64  ? damsm_fwd_tc_kernel<64, MT>
+         : D == 128 ? damsm_fwd_tc_kernel<128, MT>
+                    : damsm_fwd_tc_kernel<256, MT>;
+}
+
 }  // namespace
 }  // namespace attngan
 
@@ -1433,20 +1547,37 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 // call fails as a CUDA error instead of reading out of bounds. All arrays
 // are contiguous fp32 (mask int32): img (Bi, R, D), words (Bt, L, D),
 // mask (Bt, L), sims / gout (Bi, Bt).
+//
+// Launches the forward. tc = 1 runs it on the tensor cores
+// (damsm_fwd_tc_kernel, for the shapes takes_tc admits; S blocks per
+// image; the form with two blocks per SM where T * L <= 32), tc = 0 on the
+// CUDA cores (damsm_fwd_kernel, a block per (image, tile); S unused).
 extern "C" int damsm_similarity_fwd(const float* img, const float* words,
                                     const int* mask, float* sims, int Bi,
-                                    int Bt, int R, int L, int D, int T,
-                                    float scale, float gamma1, float gamma2,
-                                    void* stream) {
+                                    int Bt, int R, int L, int D, int T, int S,
+                                    int tc, float scale, float gamma1,
+                                    float gamma2, void* stream) {
   using namespace attngan;
-  if (!valid_dims(Bi, Bt, R, L, D, T) || Bi > 65535)
+  const int K = (Bt + T - 1) / T;
+  if (!valid_dims(Bi, Bt, R, L, D, T) || Bi > 65535 ||
+      (tc && (S < 1 || S > K || !takes_tc(L, D, T))))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_floats(T * L, D, false) * sizeof(float);
-  cudaError_t err = set_smem((const void*)damsm_fwd_kernel, bytes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!tc) {
+    const size_t bytes = smem_floats(T * L, D, false) * sizeof(float);
+    cudaError_t err = set_smem((const void*)damsm_fwd_kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    damsm_fwd_kernel<<<dim3(K, Bi), kThreads, bytes, s>>>(
+        img, words, mask, sims, Bt, R, L, D, T, scale, gamma1, gamma2);
+    return (int)cudaGetLastError();
+  }
+  const int nr = (T * L + 15) & ~15;
+  const auto kernel = nr <= 32 ? fwd_tc_kernel<2>(D) : fwd_tc_kernel<4>(D);
+  const size_t bytes = smem_floats_tc(nr, D, false) * sizeof(float);
+  cudaError_t err = set_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Bt + T - 1) / T, Bi);
-  damsm_fwd_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      img, words, mask, sims, Bt, R, L, D, T, scale, gamma1, gamma2);
+  kernel<<<dim3(S, Bi), kThreads, bytes, s>>>(img, words, mask, sims, Bt, R,
+                                              L, T, S, scale, gamma1, gamma2);
   return (int)cudaGetLastError();
 }
 
@@ -1486,7 +1617,7 @@ extern "C" int damsm_similarity_bwd(const float* img, const float* words,
              : D == 64  ? damsm_bwd_tc_kernel<64>
              : D == 128 ? damsm_bwd_tc_kernel<128>
                         : damsm_bwd_tc_kernel<256>;
-  const size_t bytes = (tc ? smem_floats_tc((T * L + 15) & ~15, D)
+  const size_t bytes = (tc ? smem_floats_tc((T * L + 15) & ~15, D, true)
                            : smem_floats(T * L, D, true)) * sizeof(float);
   cudaError_t err = set_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;

@@ -5,7 +5,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
 1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at
    once), with each kernel's registers and spills from ptxas; the resident
-   K2 kernel and the tensor-core DAMSM backward pass must not spill;
+   K2 kernel and the tensor-core DAMSM forward and backward must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
    and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
@@ -15,9 +15,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    them without the kernel); then the DAMSM similarity (K4) and its backward
    (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
    square at batch 64, 192 x 192, the sharded shape 16 x 64, and scores of
-   ~1e3 at batch 64, timed beside their bound and plain versions (the
-   backward's lines name the form of its pass, ``tc_3xtf32`` on the tensor
-   cores or ``cuda_cores``, and give ``tc_bound_ms`` beside ``bound_ms``);
+   ~1e3 at batch 64, timed beside their bound and plain versions (each
+   line names the kernel's form, ``tc_3xtf32`` on the tensor cores or
+   ``cuda_cores``, and gives ``tc_bound_ms`` beside ``bound_ms``; K4's
+   also time its tensor-core form on each grid, ``grid_ms`` by
+   ``cuda_damsm.FWD_FORMS``, beside the one it takes, ``grid``);
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
@@ -29,9 +31,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
-   just before and read just after (the backward's pass on the tensor
-   cores once in each); 20 steps on one repeated batch, whose
-   loss must fall; the fp32 step at batch 4 against the port's CPU run;
+   just before and read just after (the forward and the backward's pass
+   on the tensor cores once each in each); 20 steps on one repeated batch,
+   whose loss must fall; the fp32 step at batch 4 against the port's CPU run;
    steps/s with the kernels and with the plain words loss, in turns;
    (with ``--profile``: device time by kernel and operator, the device's
    idle share and the host's time in the CUDA runtime over 3 serving calls
@@ -64,7 +66,8 @@ BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
 TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
-NO_SPILL = ("upblock_resident_kernel", "damsm_bwd_tc_kernel")
+NO_SPILL = ("upblock_resident_kernel", "damsm_bwd_tc_kernel",
+            "damsm_fwd_tc_kernel")
 L2_BYTES = 50 * 2 ** 20
 SLEEP_CYCLES = 10 ** 8   # ~50 ms at the H100's 1.98 GHz peak SM clock
 # kernel vs plain version on the same inputs. fp32: same arithmetic in
@@ -317,21 +320,24 @@ def damsm_inputs(torch, gen, bi, bt, extreme=False):
     return img, words, mask, g
 
 
-def bwd_form(counter, before: int) -> str:
-    """The form of the backward's pass in the calls since ``before`` (the
-    counter's ``tc_launches`` then)."""
+def tc_form(counter, before: int) -> str:
+    """The form of the DAMSM kernel (the backward's: of its pass) in the
+    calls since ``before`` (the counter's ``tc_launches`` then)."""
     return "tc_3xtf32" if counter.tc_launches > before else "cuda_cores"
 
 
 def check_damsm_kernels(torch, card_name: str) -> dict:
     """Phase 2, DAMSM: K4 and the backward against their plain versions in
-    fp32 at full width; timed at 64 x 64 (K4, K5), 192 x 192 (K6 on the
-    B=192 step) and 16 x 64 (K6 on a data-parallel shard's rows). Returns
-    per kernel name: ms, plain_ms, bound_ms, bytes_ms, flops_ms,
-    max_abs_err at the shapes of the pretrain step (the backward's also
-    form and tc_bound_ms: its six products at 3 TF32 products each on the
-    tensor cores, or bytes if more)."""
+    fp32 at full width; timed at 64 x 64 (K4, K5), 192 x 192 (K4 and K6 on
+    the B=192 step) and 16 x 64 (K6 on a data-parallel shard's rows).
+    Returns per kernel name: ms, plain_ms, bound_ms, bytes_ms, flops_ms,
+    max_abs_err, form and tc_bound_ms (its products, two in K4 and six in
+    the backward, at 3 TF32 products each on the tensor cores, or bytes if
+    more) at the shapes of the pretrain step."""
     from attngan_torch.ops.cuda_damsm import (
+        FWD_FORM,
+        FWD_FORMS,
+        _launch_fwd,
         damsm_similarity,
         damsm_similarity_bwd_square,
         damsm_similarity_bwd_tiled,
@@ -359,15 +365,20 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
             damsm_similarity_bwd_tiled
         bwd_name = ("damsm_similarity_bwd_square" if square
                     else "damsm_similarity_bwd_tiled")
-        before = (damsm_similarity.launches, bwd.launches, bwd.tc_launches)
+        counts = lambda: (damsm_similarity.launches,
+                          damsm_similarity.tc_launches, bwd.launches,
+                          bwd.tc_launches)
+        before = counts()
         sims = damsm_similarity(img, words, mask)
         grads = bwd(img, words, mask, g)
         torch.cuda.synchronize()
-        after = (damsm_similarity.launches, bwd.launches, bwd.tc_launches)
-        fail_unless(after == (before[0] + 1, before[1] + 2, before[2] + 1),
-                    f"{label}: launches (forward, backward, tensor-core "
-                    f"pass) {before} -> {after}")
-        form = bwd_form(bwd, before[2])
+        after = counts()
+        fail_unless(after == (before[0] + 1, before[1] + 1, before[2] + 2,
+                              before[3] + 1),
+                    f"{label}: launches (forward, its tensor-core form, "
+                    f"backward, its tensor-core pass) {before} -> {after}")
+        forms = {"damsm_similarity": tc_form(damsm_similarity, before[1]),
+                 bwd_name: tc_form(bwd, before[3])}
         want = similarity_plain(img, words, mask)
         want_grads = similarity_bwd_plain(img, words, mask, g)
         torch.testing.assert_close(
@@ -384,9 +395,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
         for name, err in errs.items():
             line = {"phase": "kernel_check", "kernel": name, "shape": label,
                     "dtype": "float32", "bi": bi, "bt": bt,
-                    "max_abs_err": err}
-            if name == bwd_name:
-                line["form"] = form
+                    "max_abs_err": err, "form": forms[name]}
             if not extreme:
                 if name == "damsm_similarity":
                     fn = lambda: damsm_similarity(img, words, mask)
@@ -401,11 +410,17 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
                 bytes_ms = moved / HBM_BYTES_PER_S * 1e3
                 flops_ms = flops / FP32_FLOPS_PER_S * 1e3
                 line.update(ms=time_ms(fn), plain_ms=time_ms(plain),
-                            bound_ms=max(bytes_ms, flops_ms), bytes=moved,
-                            flops=flops, card=card_name)
-                if name == bwd_name:
-                    line["tc_bound_ms"] = max(
-                        bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
+                            bound_ms=max(bytes_ms, flops_ms),
+                            tc_bound_ms=max(
+                                bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3),
+                            bytes=moved, flops=flops, card=card_name)
+                if name == "damsm_similarity":
+                    # the tensor-core form's grids (FWD_FORMS), timed apart
+                    line["grid"] = FWD_FORM
+                    line["grid_ms"] = {
+                        form: time_ms(lambda: _launch_fwd(
+                            img, words, mask, 4.0, 5.0, form))
+                        for form in FWD_FORMS}
                 if report_at[name] == label:
                     totals[name] = dict(line, bytes_ms=bytes_ms,
                                         flops_ms=flops_ms)
@@ -470,25 +485,27 @@ def pretrain(torch, card_name: str):
                             "damsm_similarity_bwd_square": 2},
               DAMSM_BIG: {"damsm_similarity": 1,
                           "damsm_similarity_bwd_tiled": 2}}
-    backward = ("damsm_similarity_bwd_square", "damsm_similarity_bwd_tiled")
+    with_tc = ("damsm_similarity", "damsm_similarity_bwd_square",
+               "damsm_similarity_bwd_tiled")
     for b, want in expect.items():
         trainer.train_step(state, batches[b])                      # warm
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
-        for name in backward:
+        for name in with_tc:
             counters[name].tc_launches = 0
         state, m = trainer.train_step(state, batches[b])
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
-        tc = {name: counters[name].tc_launches for name in backward}
+        tc = {name: counters[name].tc_launches for name in with_tc}
         full = {name: want.get(name, 0) for name in counters}
         fail_unless(counts == full, f"pretrain step at batch {b}: launches "
                     f"{counts}, expected {full}")
-        # the backward's pass (one of its two launches) on the tensor cores
-        tc_want = {name: want.get(name, 0) // 2 for name in backward}
+        # the forward, and the backward's pass (one of its two launches),
+        # on the tensor cores
+        tc_want = {name: min(want.get(name, 0), 1) for name in with_tc}
         fail_unless(tc == tc_want, f"pretrain step at batch {b}: tensor-core "
-                    f"passes {tc}, expected {tc_want}")
+                    f"launches {tc}, expected {tc_want}")
         metrics = {k: float(v) for k, v in m.items()}
         fail_unless(all(np.isfinite(v) for v in metrics.values()),
                     f"non-finite metrics {metrics}")

@@ -17,9 +17,10 @@ within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
 region-softmax row term as d_v.v, the plain version as sum_r d_a2 a2, and
 both sum over 64-192 texts and 289 regions in other orders); scores of
 ~1e3: 5e-3 relative, 5e-4 absolute, as tests/test_pallas.py allows. The
-backward's pass runs on the tensor cores in 3xTF32 at D a multiple of 32
-(``tc_launches``) and is held to the same tolerances
-(tests/test_torch_port_damsm_tf32.py states its error on the CPU).
+forward and the backward's pass run on the tensor cores in 3xTF32 at D a
+multiple of 32 and texts of at most 8 words (``tc_launches``) and are held
+to the same tolerances (tests/test_torch_port_damsm_tf32.py states their
+error on the CPU).
 """
 
 import pytest
@@ -32,6 +33,8 @@ from attngan_torch.ops.cuda_upblock import (
     upblock_fused_eval_cuda,
 )
 from attngan_torch.ops.cuda_damsm import (
+    FWD_FORMS,
+    _launch_fwd,
     damsm_similarity,
     damsm_similarity_bwd,
     damsm_similarity_bwd_square,
@@ -236,16 +239,19 @@ def _counts(counter):
     return counter.launches, counter.tc_launches
 
 
-@pytest.mark.parametrize("bi,bt,l,r,d", [
-    (64, 64, 8, 289, 256),     # K5 on the pretrain step
-    (192, 192, 8, 289, 256),   # K6 on the B=192 step
-    (16, 64, 8, 289, 256),     # K6, a data-parallel shard's rows
+TC_SHAPES = [
+    (64, 64, 8, 289, 256),     # K4 and K5 on the pretrain step
+    (192, 192, 8, 289, 256),   # K4 and K6 on the B=192 step
+    (16, 64, 8, 289, 256),     # a data-parallel shard's rows
     (4, 6, 8, 33, 256),        # ragged R: 1 region in the last chunk
     (3, 5, 8, 17, 256),        # R < one chunk, n8 tiles skipped
     (4, 9, 3, 40, 256),        # L=3: 63-row tiles, padded to 64
     (5, 30, 5, 50, 128),       # L=5 at D=128: 60-row tiles, three of them
     (3, 4, 5, 20, 32),         # D=32: one warp per row band
-])
+]
+
+
+@pytest.mark.parametrize("bi,bt,l,r,d", TC_SHAPES)
 def test_damsm_backward_tensor_core_pass(cuda, bi, bt, l, r, d):
     img, words, mask, g = _damsm_args(cuda, bi, bt, l, r, d)
     counter = (damsm_similarity_bwd_square if bi == bt <= 128
@@ -312,3 +318,53 @@ def test_damsm_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         damsm_similarity(img.transpose(1, 2).contiguous().transpose(1, 2),
                          words, mask)
+
+
+@pytest.mark.parametrize("bi,bt,l,r,d", TC_SHAPES)
+def test_damsm_forward_tensor_core_form(cuda, bi, bt, l, r, d):
+    img, words, mask, _ = _damsm_args(cuda, bi, bt, l, r, d)
+    before = _counts(damsm_similarity)
+    sims = damsm_similarity(img, words, mask)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(sims, similarity_plain(img, words, mask),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(sims, damsm_similarity(img, words, mask))  # same bits
+
+
+def test_damsm_forward_tensor_cores_extreme_and_empty_text(cuda):
+    img, words, mask, _ = _damsm_args(cuda, 64, 64, 8, 289, 256,
+                                      extreme=True)
+    mask[5] = 0                                  # a text with no real word
+    before = _counts(damsm_similarity)
+    sims = damsm_similarity(img, words, mask)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isneginf(sims[:, 5]).all())
+    torch.testing.assert_close(sims, similarity_plain(img, words, mask),
+                               rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("l,d", [(8, 4), (8, 16), (12, 32)])
+def test_damsm_forward_other_shapes_keep_the_cuda_core_kernel(cuda, l, d):
+    img, words, mask, _ = _damsm_args(cuda, 2, 3, l, 33, d)
+    before = _counts(damsm_similarity)
+    sims = damsm_similarity(img, words, mask)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity) == (before[0] + 1, before[1])
+    torch.testing.assert_close(sims, similarity_plain(img, words, mask),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bi,bt", [(64, 64), (16, 64), (3, 61)])
+def test_damsm_forward_grids_match_plain(cuda, bi, bt):
+    """Every grid of the tensor-core form (FWD_FORMS) holds against the
+    plain version; "split" and "tile" compute each (image, tile) with the
+    same instructions, so they give the same bits."""
+    img, words, mask, _ = _damsm_args(cuda, bi, bt, 8, 289, 256)
+    want = similarity_plain(img, words, mask)
+    got = {form: _launch_fwd(img, words, mask, 4.0, 5.0, form)
+           for form in FWD_FORMS}
+    for sims in got.values():
+        torch.testing.assert_close(sims, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got["split"], got["tile"])

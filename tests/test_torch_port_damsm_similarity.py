@@ -29,6 +29,8 @@ from attngan_torch.ops.cuda_damsm import (
     damsm_similarity_bwd,
     damsm_similarity_bwd_square,
     damsm_similarity_bwd_tiled,
+    FWD_FORMS,
+    fwd_plan,
     plan,
     takes_tc,
 )
@@ -131,7 +133,8 @@ def test_backward_matches_autograd_of_plain_forward(rng, name):
 
 def test_wrapper_runs_the_plain_versions_on_cpu(rng):
     img, words, mask, g = _case(rng, bi=3, bt=5)
-    counts = (damsm_similarity.launches, damsm_similarity_bwd_square.launches,
+    counts = (damsm_similarity.launches, damsm_similarity.tc_launches,
+              damsm_similarity_bwd_square.launches,
               damsm_similarity_bwd_tiled.launches)
     im, wd = _t(img).requires_grad_(), _t(words).requires_grad_()
     sims = damsm_similarity(im, wd, _t(mask))
@@ -142,7 +145,8 @@ def test_wrapper_runs_the_plain_versions_on_cpu(rng):
     for fn in (damsm_similarity_bwd, damsm_similarity_bwd_tiled):
         assert all(torch.equal(a, b) for a, b in zip(
             fn(_t(img), _t(words), _t(mask), _t(g)), want))
-    assert (damsm_similarity.launches, damsm_similarity_bwd_square.launches,
+    assert (damsm_similarity.launches, damsm_similarity.tc_launches,
+            damsm_similarity_bwd_square.launches,
             damsm_similarity_bwd_tiled.launches) == counts
 
 
@@ -189,9 +193,31 @@ def test_plan_fills_the_card(bi, bt, l, d, want):
 @pytest.mark.parametrize("l,d,want", [(8, 256, True), (3, 32, True),
                                       (8, 16, False), (9, 256, False)])
 def test_backward_form_by_shape(l, d, want):
-    """The pass takes the tensor cores at D a multiple of 32 and texts of
-    at most 8 words (their softmaxes hold a text in registers)."""
+    """The forward and the backward's pass take the tensor cores at D a
+    multiple of 32 and texts of at most 8 words (their softmaxes hold a
+    text in registers)."""
     assert takes_tc(l, d) == want
+
+
+@pytest.mark.parametrize("form", FWD_FORMS)
+@pytest.mark.parametrize("bi,bt,l,d", [
+    (64, 64, 8, 256), (192, 192, 8, 256), (16, 64, 8, 256),
+    (3, 61, 8, 256),                  # ragged Bt: the last tile a part one
+    (5, 30, 5, 128), (2, 7, 3, 32), (1, 1, 8, 64)])
+def test_plan_covers_every_pair_once(bi, bt, l, d, form):
+    """The tensor-core forward's walk over its grid: block (split s, image
+    j) takes the text tiles s, s + S, ... < K, tile k the texts k T ..
+    min(Bt, (k + 1) T) - 1. Every (image, text) pair is computed once."""
+    t, s = fwd_plan(bi, bt, l, d, form=form)
+    k = -(-bt // t)
+    rows = 32 if form == "pair" else 64
+    assert takes_tc(l, d) and t * l <= rows and 1 <= s <= k
+    seen = np.zeros((bi, bt), dtype=int)
+    for j in range(bi):
+        for split in range(s):
+            for tile in range(split, k, s):
+                seen[j, tile * t:min(bt, (tile + 1) * t)] += 1
+    assert (seen == 1).all()
 
 
 def test_plan_rejects_texts_longer_than_a_tile():
