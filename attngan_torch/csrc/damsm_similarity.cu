@@ -848,9 +848,7 @@ __device__ __forceinline__ void mma3(float (&acc)[MW][NW][4], int mw, int nw,
 // The thread's rows and columns of its warp's 64 x 32 share of a (rows x D)
 // array held as acc[i][j][e]: row row0 + 16i + g + 8(e / 2), column
 // col0 + 8j + 2t + e % 2. Warp w holds rows 64 (w / (D/32)) and columns
-// 32 (w % (D/32)) onwards: rows * D <= kTileFloats fits 8 warps. A kernel
-// whose tiles hold at most 16 MT rows keeps MT of the share's four m16
-// tiles (acc[MT][4][4]; the forward's 32-row form: MT = 2).
+// 32 (w % (D/32)) onwards: rows * D <= kTileFloats fits 8 warps.
 struct TcTile {
   int g, t, wn, ncol, row0, col0;
   __device__ explicit TcTile(int D) {
@@ -864,10 +862,9 @@ struct TcTile {
   }
   __device__ int row(int i, int h) const { return row0 + 16 * i + g + 8 * h; }
   __device__ int col(int j) const { return col0 + 8 * j + 2 * t; }
-  // m16 tiles of the share (of its first MT) that hold rows below `rows`
-  template <int MT = 4>
+  // m16 tiles of the share that hold rows below `rows`
   __device__ int tiles(int rows) const {
-    return min(MT, max(0, (rows - row0 + 15) / 16));
+    return min(4, max(0, (rows - row0 + 15) / 16));
   }
 };
 
@@ -1000,16 +997,15 @@ __device__ __forceinline__ void tc_scores(const Smem& sm, const float* cb,
 // acc += coef . ctx over the chunk cb's regions (coef [row][kCs], zero
 // past nvalid and in the rows past the tile's up to the next multiple of
 // 16). k8 steps wholly past nvalid skipped.
-template <int MT>
 __device__ __forceinline__ void tc_accumulate(const Smem& sm, const TcTile& tl,
                                               const float* cb,
                                               const float* coef,
-                                              float (&acc)[MT][4][4], int rows,
+                                              float (&acc)[4][4][4], int rows,
                                               int nvalid) {
   const float* cc = cb + tl.col0;
   const float* ab = coef + tl.row0 * kCs;
-  mma3<MT, 4>(
-      acc, tl.tiles<MT>(rows), 4, (nvalid + 7) & ~7,
+  mma3<4, 4>(
+      acc, tl.tiles(rows), 4, (nvalid + 7) & ~7,
       [&](int i, int k0, float (&a)[4]) {
         frag_a(ab + 16 * i * kCs, kCs, k0, a);
       },
@@ -1126,19 +1122,19 @@ __device__ __forceinline__ void tc_chunk_bwd(const Smem& sm, int texts, int L,
 }
 
 // out_p[row] = sum over the row's D columns of part[p] (the thread's two
-// rows per m16 tile, MT tiles): over the lane quad by shuffles, then over
-// the D/32 warps of the row in a fixed order. red holds NP x nr x kTcSlots
-// floats. Block-wide (syncs).
-template <int NP, int MT>
+// rows per m16 tile): over the lane quad by shuffles, then over the D/32
+// warps of the row in a fixed order. red holds NP x nr x kTcSlots floats.
+// Block-wide (syncs).
+template <int NP>
 __device__ __forceinline__ void tc_row_reduce(const Smem& sm, const TcTile& tl,
                                               float* red,
-                                              float (&part)[NP][MT][2],
+                                              float (&part)[NP][4][2],
                                               float* const (&out)[NP],
                                               int rows) {
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float x = part[p][i][h];
@@ -1189,19 +1185,18 @@ struct PhaseClock {};
 // Pass 1 of the chain for one tile on the tensor cores, and its cosine
 // terms: the tile's texts against every chunk of the image that
 // next_chunk() hands out (it waits for the chunk and puts the next one in
-// flight), leaving v = a2 . ctx in acc (TcTile layout, MT m16 tiles; acc
-// zero on entry) and per row w.v (kNum), v.v (kVV) and Eq. 10's term
-// mask exp(gamma2 cos) (kExpG). The forward and the backward's recompute
-// run this one function, so they give the same values. Block-wide; ends
-// with a barrier.
-template <int MT, class NextChunk>
+// flight), leaving v = a2 . ctx in acc (TcTile layout; acc zero on entry)
+// and per row w.v (kNum), v.v (kVV) and Eq. 10's term mask exp(gamma2 cos)
+// (kExpG). The forward and the backward's recompute run this one function,
+// so they give the same values. Block-wide; ends with a barrier.
+template <class NextChunk>
 __device__ __forceinline__ void tc_pass1(const Smem& sm, const TcTile& tl,
                                          float* red, NextChunk& next_chunk,
                                          PhaseClock& clock,
-                                         float (&acc)[MT][4][4], int texts,
+                                         float (&acc)[4][4][4], int texts,
                                          int rows, int R, int L, float scale,
                                          float gamma1, float gamma2) {
-  const int mw = tl.tiles<MT>(rows);
+  const int mw = tl.tiles(rows);
   for (int r0 = 0; r0 < R; r0 += kChunk) {
     const int nvalid = min(kChunk, R - r0);
     const float* cb = next_chunk();
@@ -1213,7 +1208,7 @@ __device__ __forceinline__ void tc_pass1(const Smem& sm, const TcTile& tl,
     __syncthreads();
     PHASE(3);
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = tl.row(i, h);
@@ -1230,9 +1225,9 @@ __device__ __forceinline__ void tc_pass1(const Smem& sm, const TcTile& tl,
 
   // v = acc / sum; per row w.v and v.v, then the cosine's Eq. 10 term
   {
-    float part[2][MT][2];
+    float part[2][4][2];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = tl.row(i, h);
@@ -1453,12 +1448,10 @@ damsm_bwd_tc_kernel(const float* __restrict__ img,
 // terms (tc_pass1), then Eq. 10 per text. Block (split s, image j) walks
 // the text tiles s, s + S, ... < K, as the backward does, with the
 // image's chunks streaming through the two-stage cp.async ring across
-// every tile of the block (once per tile). Same padding and D template as
-// the backward. Tiles of up to 64 rows (MT = 4) take one block per SM
-// (149 KB of shared memory); tiles of up to 32 rows (MT = 2: 110 KB, 32
-// accumulators a thread) two.
-template <int D, int MT>
-__global__ void __launch_bounds__(kThreads, 4 / MT)
+// every tile of the block (once per tile). Same tiles, padding and D
+// template as the backward; one block per SM (149 KB of shared memory).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 damsm_fwd_tc_kernel(const float* __restrict__ img,
                     const float* __restrict__ words,
                     const int* __restrict__ mask, float* __restrict__ sims,
@@ -1498,7 +1491,7 @@ damsm_fwd_tc_kernel(const float* __restrict__ img,
     for (int i = threadIdx.x; i < (nr - rows) * sm.ws; i += kThreads)
       sm.w[rows * sm.ws + i] = 0.f;  // pad rows: zeros in every product
     PHASE_SYNC(0);
-    float acc[MT][4][4] = {};
+    float acc[4][4][4] = {};
     tc_pass1(sm, tl, red, next_chunk, clock, acc, texts, rows, R, L, scale,
              gamma1, gamma2);
     for (int t = threadIdx.x; t < texts; t += kThreads) {
@@ -1531,14 +1524,6 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int MT>
-auto fwd_tc_kernel(int D) {
-  return D == 32    ? damsm_fwd_tc_kernel<32, MT>
-         : D == 64  ? damsm_fwd_tc_kernel<64, MT>
-         : D == 128 ? damsm_fwd_tc_kernel<128, MT>
-                    : damsm_fwd_tc_kernel<256, MT>;
-}
-
 }  // namespace
 }  // namespace attngan
 
@@ -1550,8 +1535,8 @@ auto fwd_tc_kernel(int D) {
 //
 // Launches the forward. tc = 1 runs it on the tensor cores
 // (damsm_fwd_tc_kernel, for the shapes takes_tc admits; S blocks per
-// image; the form with two blocks per SM where T * L <= 32), tc = 0 on the
-// CUDA cores (damsm_fwd_kernel, a block per (image, tile); S unused).
+// image), tc = 0 on the CUDA cores (damsm_fwd_kernel, a block per (image,
+// tile); S unused).
 extern "C" int damsm_similarity_fwd(const float* img, const float* words,
                                     const int* mask, float* sims, int Bi,
                                     int Bt, int R, int L, int D, int T, int S,
@@ -1571,9 +1556,12 @@ extern "C" int damsm_similarity_fwd(const float* img, const float* words,
         img, words, mask, sims, Bt, R, L, D, T, scale, gamma1, gamma2);
     return (int)cudaGetLastError();
   }
-  const int nr = (T * L + 15) & ~15;
-  const auto kernel = nr <= 32 ? fwd_tc_kernel<2>(D) : fwd_tc_kernel<4>(D);
-  const size_t bytes = smem_floats_tc(nr, D, false) * sizeof(float);
+  const auto kernel = D == 32    ? damsm_fwd_tc_kernel<32>
+                      : D == 64  ? damsm_fwd_tc_kernel<64>
+                      : D == 128 ? damsm_fwd_tc_kernel<128>
+                                 : damsm_fwd_tc_kernel<256>;
+  const size_t bytes =
+      smem_floats_tc((T * L + 15) & ~15, D, false) * sizeof(float);
   cudaError_t err = set_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(S, Bi), kThreads, bytes, s>>>(img, words, mask, sims, Bt, R,

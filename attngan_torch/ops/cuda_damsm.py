@@ -42,13 +42,6 @@ MAX_D = 256
 TC_COLS = 32          # the tensor-core pass: a warp owns 32 columns of D,
 TC_MAX_L = 8          # a text's words sit in registers,
 TC_MAX_ROWS = 64      # and a tile holds at most 4 m16 row tiles
-# The tensor-core forward's grids (damsm_fwd_tc_kernel): "split", 64-row
-# tiles on plan's S blocks per image, one block per SM; "tile", a block per
-# (image, 64-row tile); "pair", 32-row tiles at two blocks per SM, plan's S
-# for that. FWD_FORM is the one the forward takes.
-FWD_FORMS = ("split", "tile", "pair")
-FWD_FORM = "split"
-PAIR_ROWS = 32
 SQUARE_MAX = 128      # the JAX package's square fast path: Bi == Bt <= 128
 H100_SMS = 132
 
@@ -61,42 +54,29 @@ def takes_tc(l: int, d: int) -> bool:
 
 
 def plan(bi: int, bt: int, l: int, d: int, num_sms: int = H100_SMS,
-         max_rows: int | None = None, per_sm: int = 1
-         ) -> Tuple[int, int, int]:
+         slack: float = 1.1) -> Tuple[int, int, int]:
     """(T texts per tile, K tiles, S blocks per image in the backward and
     the tensor-core forward).
 
     A tile holds whole texts, T * L word rows of D floats, at most
     TILE_FLOATS and MAX_ROWS (TC_MAX_ROWS where the kernels take the
-    tensor cores; ``max_rows`` if given). Those kernels run one block per
-    (image, split) at ``per_sm`` blocks per SM (their shared memory); the
-    image's K tiles are dealt over S splits (split s takes tiles s, s + S,
-    ...), and S is the smallest whose waves x tiles per block is within
-    10% of the least."""
+    tensor cores). Those kernels run one block per (image, split) at one
+    block per SM (their shared memory); the image's K tiles are dealt over
+    S splits (split s takes tiles s, s + S, ...), and S is the smallest
+    whose waves x tiles per block is within ``slack`` of the least. The
+    backward takes 10%, since each further split adds a d_img partial to
+    sum; the forward (slack 1) the least: at 192 x 192 a block per tile,
+    2.8% faster than 2 splits on the H100 (PERF.md)."""
     rows = min(TC_MAX_ROWS if takes_tc(l, d) else MAX_ROWS,
-               TILE_FLOATS // d, max_rows or MAX_ROWS)
+               TILE_FLOATS // d)
     if l > rows:
         raise ValueError(f"a text of {l} words does not fit a tile of "
                          f"{rows} rows at D={d}")
     t = rows // l
     k = -(-bt // t)
-    slots = num_sms * per_sm
-    cost = {s: -(-bi * s // slots) * -(-k // s) for s in range(1, k + 1)}
+    cost = {s: -(-bi * s // num_sms) * -(-k // s) for s in range(1, k + 1)}
     best = min(cost.values())
-    return t, k, min(s for s, c in cost.items() if c <= 1.1 * best)
-
-
-def fwd_plan(bi: int, bt: int, l: int, d: int, num_sms: int = H100_SMS,
-             form: str = FWD_FORM) -> Tuple[int, int]:
-    """(T texts per tile, S blocks per image) of the tensor-core forward in
-    ``form`` (one of FWD_FORMS)."""
-    if form == "pair":
-        t, _, s = plan(bi, bt, l, d, num_sms, PAIR_ROWS, per_sm=2)
-        return t, s
-    if form not in FWD_FORMS:
-        raise ValueError(f"no forward form {form!r}; forms: {FWD_FORMS}")
-    t, k, s = plan(bi, bt, l, d, num_sms)
-    return t, (k if form == "tile" else s)
+    return t, k, min(s for s, c in cost.items() if c <= slack * best)
 
 
 class DamsmSimilarity(torch.autograd.Function):
@@ -171,22 +151,19 @@ def _stream(t: torch.Tensor) -> int:
 
 def _launch_fwd(img: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
                 gamma1: float, gamma2: float,
-                form: str = FWD_FORM) -> torch.Tensor:
-    """sims; ``form`` picks the tensor-core forward's grid (chip_smoke.py
-    times each of FWD_FORMS)."""
+                splits: int | None = None) -> torch.Tensor:
+    """sims; ``splits`` replaces plan's S of the tensor-core form
+    (chip_smoke.py times it on other grids)."""
     mask = _checked(img, words, mask)
     bi, r, d = img.shape
     bt, l = mask.shape
     tc = takes_tc(l, d)
-    if tc:
-        t, s = fwd_plan(bi, bt, l, d, _num_sms(img.device), form)
-    else:
-        t, _, s = plan(bi, bt, l, d)
+    t, _, s = plan(bi, bt, l, d, _num_sms(img.device), slack=1.0)
     sims = torch.empty((bi, bt), dtype=torch.float32, device=img.device)
     status = _lib().damsm_similarity_fwd(
         img.data_ptr(), words.data_ptr(), mask.data_ptr(), sims.data_ptr(),
-        bi, bt, r, l, d, t, s, int(tc), 1.0 / math.sqrt(d), gamma1, gamma2,
-        _stream(img))
+        bi, bt, r, l, d, t, splits or s, int(tc), 1.0 / math.sqrt(d), gamma1,
+        gamma2, _stream(img))
     _build.check(status, "damsm_similarity_fwd")
     damsm_similarity.launches += 1
     damsm_similarity.tc_launches += tc

@@ -85,7 +85,7 @@ def main(batches) -> None:
         mask = (torch.arange(8, device="cuda")[None] < lengths[:, None]).int()
         g = torch.randn(b, b, generator=gen, device="cuda")
         _, _, splits = cuda_damsm.plan(b, b, 8, 256)
-        _, fwd_splits = cuda_damsm.fwd_plan(b, b, 8, 256)
+        _, _, fwd_splits = cuda_damsm.plan(b, b, 8, 256, slack=1.0)
         runs = {
             "backward": (lambda: cuda_damsm.damsm_similarity_bwd_tiled(
                 img, words, mask, g), dict(enumerate(PHASES)), splits),

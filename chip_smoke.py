@@ -18,8 +18,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    ~1e3 at batch 64, timed beside their bound and plain versions (each
    line names the kernel's form, ``tc_3xtf32`` on the tensor cores or
    ``cuda_cores``, and gives ``tc_bound_ms`` beside ``bound_ms``; K4's
-   also time its tensor-core form on each grid, ``grid_ms`` by
-   ``cuda_damsm.FWD_FORMS``, beside the one it takes, ``grid``);
+   also time its tensor-core form on other grids, ``grid_ms`` by S, the
+   blocks per image: the backward's S, a block per text tile (S = K), and
+   the S it takes, ``splits``);
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
@@ -335,12 +336,11 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
     the backward, at 3 TF32 products each on the tensor cores, or bytes if
     more) at the shapes of the pretrain step."""
     from attngan_torch.ops.cuda_damsm import (
-        FWD_FORM,
-        FWD_FORMS,
         _launch_fwd,
         damsm_similarity,
         damsm_similarity_bwd_square,
         damsm_similarity_bwd_tiled,
+        plan,
     )
     from attngan_torch.ops.damsm_similarity import (
         similarity_bwd_plain,
@@ -348,6 +348,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
     )
 
     gen = torch.Generator("cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     totals = {}
     pair_flops = 2 * DAMSM_SEQ * DAMSM_DIM * DAMSM_REGIONS   # one product
     # the shape each kernel meets on the pretrain step, for the totals
@@ -415,12 +416,14 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
                                 bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3),
                             bytes=moved, flops=flops, card=card_name)
                 if name == "damsm_similarity":
-                    # the tensor-core form's grids (FWD_FORMS), timed apart
-                    line["grid"] = FWD_FORM
+                    # the tensor-core form on its grid and on the others
+                    _, k, s_bwd = plan(bi, bt, DAMSM_SEQ, DAMSM_DIM, sms)
+                    s = plan(bi, bt, DAMSM_SEQ, DAMSM_DIM, sms, slack=1.0)[2]
+                    line["splits"] = s
                     line["grid_ms"] = {
-                        form: time_ms(lambda: _launch_fwd(
-                            img, words, mask, 4.0, 5.0, form))
-                        for form in FWD_FORMS}
+                        str(n): time_ms(lambda: _launch_fwd(
+                            img, words, mask, 4.0, 5.0, splits=n))
+                        for n in sorted({s_bwd, k, s})}
                 if report_at[name] == label:
                     totals[name] = dict(line, bytes_ms=bytes_ms,
                                         flops_ms=flops_ms)

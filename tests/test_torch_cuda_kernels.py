@@ -33,12 +33,12 @@ from attngan_torch.ops.cuda_upblock import (
     upblock_fused_eval_cuda,
 )
 from attngan_torch.ops.cuda_damsm import (
-    FWD_FORMS,
     _launch_fwd,
     damsm_similarity,
     damsm_similarity_bwd,
     damsm_similarity_bwd_square,
     damsm_similarity_bwd_tiled,
+    plan,
 )
 from attngan_torch.ops.cuda_upblock_packed import upblock_fused_eval_packed_cuda
 from attngan_torch.ops.damsm_similarity import (
@@ -356,15 +356,15 @@ def test_damsm_forward_other_shapes_keep_the_cuda_core_kernel(cuda, l, d):
                                rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("bi,bt", [(64, 64), (16, 64), (3, 61)])
-def test_damsm_forward_grids_match_plain(cuda, bi, bt):
-    """Every grid of the tensor-core form (FWD_FORMS) holds against the
-    plain version; "split" and "tile" compute each (image, tile) with the
-    same instructions, so they give the same bits."""
+@pytest.mark.parametrize("bi,bt", [(64, 64), (192, 192), (3, 61)])
+def test_damsm_forward_grids_give_the_same_bits(cuda, bi, bt):
+    """A block per image, plan's S blocks and a block per text tile compute
+    each (image, tile) with the same instructions."""
     img, words, mask, _ = _damsm_args(cuda, bi, bt, 8, 289, 256)
-    want = similarity_plain(img, words, mask)
-    got = {form: _launch_fwd(img, words, mask, 4.0, 5.0, form)
-           for form in FWD_FORMS}
-    for sims in got.values():
-        torch.testing.assert_close(sims, want, rtol=1e-4, atol=1e-5)
-    assert torch.equal(got["split"], got["tile"])
+    _, k, s = plan(bi, bt, 8, 256)
+    want = _launch_fwd(img, words, mask, 4.0, 5.0, splits=s)
+    torch.testing.assert_close(want, similarity_plain(img, words, mask),
+                               rtol=1e-4, atol=1e-5)
+    for n in (1, k):
+        assert torch.equal(_launch_fwd(img, words, mask, 4.0, 5.0, splits=n),
+                           want)

@@ -29,8 +29,6 @@ from attngan_torch.ops.cuda_damsm import (
     damsm_similarity_bwd,
     damsm_similarity_bwd_square,
     damsm_similarity_bwd_tiled,
-    FWD_FORMS,
-    fwd_plan,
     plan,
     takes_tc,
 )
@@ -190,6 +188,14 @@ def test_plan_fills_the_card(bi, bt, l, d, want):
     assert plan(bi, bt, l, d) == want
 
 
+@pytest.mark.parametrize("bi,bt,want", [
+    (64, 64, 2),          # one wave of 128 blocks, 4 tiles each
+    (192, 192, 24),       # a block per tile: 35 waves (2 splits: 3 x 12)
+    (16, 64, 8)])
+def test_forward_plan_takes_the_fewest_waves_times_tiles(bi, bt, want):
+    assert plan(bi, bt, 8, 256, slack=1.0) == (8, -(-bt // 8), want)
+
+
 @pytest.mark.parametrize("l,d,want", [(8, 256, True), (3, 32, True),
                                       (8, 16, False), (9, 256, False)])
 def test_backward_form_by_shape(l, d, want):
@@ -199,25 +205,27 @@ def test_backward_form_by_shape(l, d, want):
     assert takes_tc(l, d) == want
 
 
-@pytest.mark.parametrize("form", FWD_FORMS)
 @pytest.mark.parametrize("bi,bt,l,d", [
-    (64, 64, 8, 256), (192, 192, 8, 256), (16, 64, 8, 256),
-    (3, 61, 8, 256),                  # ragged Bt: the last tile a part one
+    (64, 64, 8, 256), (16, 64, 8, 256),
+    (3, 61, 8, 256),                  # ragged Bt: the last tile holds 5 texts
     (5, 30, 5, 128), (2, 7, 3, 32), (1, 1, 8, 64)])
-def test_plan_covers_every_pair_once(bi, bt, l, d, form):
-    """The tensor-core forward's walk over its grid: block (split s, image
-    j) takes the text tiles s, s + S, ... < K, tile k the texts k T ..
-    min(Bt, (k + 1) T) - 1. Every (image, text) pair is computed once."""
-    t, s = fwd_plan(bi, bt, l, d, form=form)
-    k = -(-bt // t)
-    rows = 32 if form == "pair" else 64
-    assert takes_tc(l, d) and t * l <= rows and 1 <= s <= k
-    seen = np.zeros((bi, bt), dtype=int)
-    for j in range(bi):
-        for split in range(s):
-            for tile in range(split, k, s):
-                seen[j, tile * t:min(bt, (tile + 1) * t)] += 1
-    assert (seen == 1).all()
+def test_plan_covers_every_pair_once(bi, bt, l, d):
+    """The tensor-core kernels' walk over any grid of plan's tiles: block
+    (split s, image j) takes the text tiles s, s + S, ... < K, tile k the
+    texts k T .. min(Bt, (k + 1) T) - 1. At every S from 1 to K, the
+    forward's and the backward's among them, every (image, text) pair is
+    computed once."""
+    t, k, s_bwd = plan(bi, bt, l, d)
+    s_fwd = plan(bi, bt, l, d, slack=1.0)[2]
+    assert takes_tc(l, d) and t * l <= 64 and 1 <= s_bwd <= k
+    assert 1 <= s_fwd <= k
+    for s in range(1, k + 1):
+        seen = np.zeros((bi, bt), dtype=int)
+        for j in range(bi):
+            for split in range(s):
+                for tile in range(split, k, s):
+                    seen[j, tile * t:min(bt, (tile + 1) * t)] += 1
+        assert (seen == 1).all()
 
 
 def test_plan_rejects_texts_longer_than_a_tile():
