@@ -1,13 +1,14 @@
 // Fused eval-mode UpBlock for Hopper: nearest 2x upsample -> conv3x3 ->
-// folded BatchNorm -> GLU, in one pass (K2, and its Ci=64 -> Co=32
-// specialisation K3).
+// folded BatchNorm -> GLU, in one pass (K2, which also serves K3).
 //
 // Replaces the TPU kernels attngan_tpu/ops/pallas_upblock.py::
 // _upblock_kernel (called through _upblock_call) and
-// attngan_tpu/ops/pallas_upblock_packed.py::_kernel (the lane-packed
-// Ci=64 -> Co=32 form; its column-pair lane packing exists for the TPU's
-// 128-wide lanes and has no meaning here, so K3 is the same arithmetic with
-// the dims fixed at compile time).
+// attngan_tpu/ops/pallas_upblock_packed.py::_kernel. The latter computes
+// the same function at exactly Ci=64 -> Co=32, with column pairs packed
+// into the TPU's 128-wide lanes. That packing has no meaning on Hopper,
+// whose form for exactly those dims is upblock_resident_kernel below, so
+// K3 (ops/cuda_upblock_packed.py) launches it in bf16, and the CUDA-core
+// upblock_kernel in fp32: no kernel of its own.
 //
 // Math (the exact parity decomposition of attngan_tpu/ops/layers.py::
 // upsample_conv3x3_fused): output pixel (2i+py, 2j+px) of the 3x3 conv over
@@ -155,70 +156,6 @@ upblock_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       epilogue(acc, scale, bias, out, b, r0 + tr, c0 + tc0, py, px, cn, H, W,
                Co);
     }
-  }
-}
-
-// K3, fp32: Ci = 64, Co = 32 at compile time. Constant trip counts, and one
-// parity's weights (4*64 x 64, fp32) staged in shared memory at a time: the
-// eight warps take the eight groups of 4 channel pairs, each warp reading
-// its weights as a broadcast float4 from shared memory.
-constexpr int kPCi = 64, kPCo = 32;
-constexpr int kPK = 4 * kPCi, kPN = 2 * kPCo;
-static_assert(kWarps * 4 == kPCo, "one warp per group of 4 channel pairs");
-
-__global__ void __launch_bounds__(kThreads)
-upblock_packed_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int H, int W) {
-  extern __shared__ float smem[];
-  float* ws = smem;               // [kPK][kPN] one parity (16-byte aligned)
-  float* xs = smem + kPK * kPN;   // input tile
-  const TileLayout t(kPCi);
-  const int b = blockIdx.z, r0 = blockIdx.y * kRows, c0 = blockIdx.x * kCols;
-  load_tile(x, xs, t, b, r0, c0, H, W, kPCi);
-
-  const int lane = threadIdx.x & 31, cn = (threadIdx.x >> 5) * 4;
-  const int tr = lane >> 2, tc0 = (lane & 3) * 4;
-  for (int p = 0; p < 4; ++p) {
-    const int py = p >> 1, px = p & 1;
-    __syncthreads();  // the previous parity's weights are no longer read
-    const float* src = wp + (size_t)p * kPK * kPN;
-    for (int i = threadIdx.x * 4; i < kPK * kPN; i += kThreads * 4) {
-      float v[4];
-      load4(src + i, v);
-      store4(ws + i, v);
-    }
-    __syncthreads();
-
-    float acc[4][8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) acc[q][n] = 0.f;
-#pragma unroll
-    for (int tap = 0; tap < 4; ++tap) {
-      const int a = tap >> 1, bt = tap & 1;
-      const float* xr = xs + (tr + py + a) * t.rs + (tc0 + px + bt) * t.cis;
-      const float* wk = ws + tap * kPCi * kPN + cn;
-#pragma unroll 4
-      for (int ci = 0; ci < kPCi; ++ci) {
-        float xv[4], wa[4], wg[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) xv[q] = xr[q * t.cis + ci];
-        load4(wk + ci * kPN, wa);
-        load4(wk + ci * kPN + kPCo, wg);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            acc[q][n] += xv[q] * wa[n];
-            acc[q][4 + n] += xv[q] * wg[n];
-          }
-      }
-    }
-    epilogue(acc, scale, bias, out, b, r0 + tr, c0 + tc0, py, px, cn, H, W,
-             kPCo);
   }
 }
 
@@ -375,42 +312,6 @@ upblock_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
     mma_parity(xs, t, w, wld, Ci, Co, warp, py, px, st);
     glu_store(st, t, scale, bias, out, b, r0 + warp, c0, py, px, H, W, Co);
-  }
-}
-
-// K3, bf16: K2's staged-weights form with Ci = 64, Co = 32 compiled in
-// (constant trip counts and offsets; the mma loops unroll).
-constexpr int kPWld = kPN + 16;
-
-__global__ void __launch_bounds__(kThreads)
-upblock_packed_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ wp,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, int H, int W) {
-  extern __shared__ __align__(128) unsigned char mma_smem[];
-  const MmaLayout t(kPCi, kPCo);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* ws =
-      reinterpret_cast<__nv_bfloat16*>(mma_smem + t.tile_bytes());
-  const int warp = threadIdx.x >> 5;
-  float* st = reinterpret_cast<float*>(mma_smem + t.tile_bytes() +
-                                       kPK * kPWld * sizeof(__nv_bfloat16)) +
-              warp * 16 * t.sld;
-  const int b = blockIdx.z, r0 = blockIdx.y * kRows, c0 = blockIdx.x * kCols;
-  load_tile_bf16(x, xs, t, b, r0, c0, H, W, kPCi);
-  for (int p = 0; p < 4; ++p) {
-    const int py = p >> 1, px = p & 1;
-    __syncthreads();  // the previous parity's weights are no longer read
-    const __nv_bfloat16* src = wp + (size_t)p * kPK * kPN;
-    for (int i = threadIdx.x; i < kPK * kPN / 8; i += kThreads) {
-      const int k = i / (kPN / 8), n8 = i % (kPN / 8);
-      *reinterpret_cast<uint4*>(ws + k * kPWld + 8 * n8) =
-          *reinterpret_cast<const uint4*>(src + k * kPN + 8 * n8);
-    }
-    __syncthreads();
-    mma_parity(xs, t, ws, kPWld, kPCi, kPCo, warp, py, px, st);
-    glu_store(st, t, scale, bias, out, b, r0 + warp, c0, py, px, H, W, kPCo);
   }
 }
 
@@ -809,32 +710,6 @@ int launch_upblock(int dtype, const void* x, const void* wp,
   return (int)cudaGetLastError();
 }
 
-int launch_packed(int dtype, const void* x, const void* wp, const float* scale,
-                  const float* bias, void* out, int B, int H, int W,
-                  cudaStream_t stream) {
-  if (dtype == kFloat32) {
-    const size_t smem =
-        (kPK * kPN + TileLayout(kPCi).floats()) * sizeof(float);
-    cudaError_t e = allow_smem(upblock_packed_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    upblock_packed_kernel<<<grid_for(B, H, W), kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wp), scale,
-        bias, static_cast<float*>(out), H, W);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != kBFloat16) return (int)cudaErrorInvalidValue;
-  const MmaLayout t(kPCi, kPCo);
-  const size_t smem = t.tile_bytes() + kPK * kPWld * sizeof(__nv_bfloat16) +
-                      t.staging_bytes();
-  cudaError_t e = allow_smem(upblock_packed_mma_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  upblock_packed_mma_kernel<<<grid_for(B, H, W), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wp), scale, bias,
-      static_cast<__nv_bfloat16*>(out), H, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace attngan
 
@@ -867,14 +742,4 @@ extern "C" int upblock_fused_eval_resident(const void* x, const void* wr,
     return res::launch_resident<64, 32>(x, wr, scale, bias, out, B, H, W,
                                         grid, s);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int upblock_fused_eval_packed(int dtype, const void* x,
-                                         const void* wp, const float* scale,
-                                         const float* bias, void* out, int B,
-                                         int H, int W, void* stream) {
-  using namespace attngan;
-  if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  return launch_packed(dtype, x, wp, scale, bias, out, B, H, W,
-                       static_cast<cudaStream_t>(stream));
 }

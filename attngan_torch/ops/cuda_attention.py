@@ -1,10 +1,12 @@
 """K1: the generator's word attention as a CUDA kernel for Hopper.
 
 Replaces attngan_tpu/ops/pallas_attention.py (``word_attention_pallas``).
-The kernel is csrc/word_attention.cu; its plain version is
-ops/attention.py::word_attention, which this wrapper runs for a CPU tensor
-and nowhere else. The backward recomputes through the plain version, as
-``_word_attention_pallas_bwd`` does through the jnp reference.
+The kernel is csrc/word_attention.cu (``word_attention_stream_kernel``):
+persistent blocks that stream tiles of pixels through a ring of bulk
+copies, ``plan`` below sizes its tiles, lanes, ring and grid. Its plain
+version is ops/attention.py::word_attention, which this wrapper runs for a
+CPU tensor and nowhere else. The backward recomputes through the plain
+version, as ``_word_attention_pallas_bwd`` does through the jnp reference.
 """
 
 from __future__ import annotations
@@ -12,14 +14,111 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from attngan_torch.ops import _build
-from attngan_torch.ops.attention import NEG_INF, word_attention
+from attngan_torch.ops.attention import word_attention
 
 MAX_WORDS = 32
+# the kernel's plan (csrc/word_attention.cu): a tile of at most MAX_TILE
+# pixels and about STAGE_BYTES; a ring of STAGES tiles (the kernel takes up
+# to MAX_STAGES; on the H100 two were faster than three or four,
+# attngan_torch/tools/attention_plans.py); blocks of 8 warps, two an SM
+# where their shared memory fits
+STAGE_BYTES = 16 * 1024
+MAX_TILE = 256
+STAGES = 2
+MAX_STAGES = 4
+BLOCKS_PER_SM = 2
+SMEM_LIMIT = 227 * 1024     # shared memory a block may have on the H100,
+SM_SMEM = 228 * 1024        # an SM has,
+SMEM_RESERVED = 1024        # and the SM keeps per block
+
+
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def chunk_values(c: int, itemsize: int) -> int:
+    """Values a lane holds of a pixel's row: 16 bytes where C allows it
+    (fp32 always, bf16 at C % 8 == 0), else 4 (bf16 at C % 8 == 4)."""
+    return 16 // itemsize if c * itemsize % 16 == 0 else 4
+
+
+def word_slots(l: int) -> int:
+    """Words the kernel computes (its kWords): L itself up to 8, else 16 or
+    32, the words past L zero and masked."""
+    return l if l <= 8 else 16 if l <= 16 else 32
+
+
+def smem_bytes(c: int, l: int, itemsize: int, pt: int, g: int,
+               stages: int) -> int:
+    """A block's shared memory, as csrc/word_attention.cu::Layout lays it
+    out: barriers, fp32 words and mask flags (``word_slots`` rows), two (L,
+    ld) attention tiles whose rows fall in other banks, the ring."""
+    ld = pt + max(4, 32 // g)
+    words = word_slots(l)
+    valid_off = 128 + _round_up(words * c * 4, 16)
+    ring_off = _round_up(_round_up(valid_off + words * 4, 128)
+                         + 2 * l * ld * 4, 128)
+    return ring_off + stages * _round_up(pt * c * itemsize, 128)
+
+
+class Plan(NamedTuple):
+    pt: int        # pixels of a tile (the last tile of an image may be short)
+    g: int         # lanes that share a pixel
+    stages: int    # ring stages
+    blocks: int    # blocks an SM whose shared memory fits
+    grid: int      # persistent blocks
+    tiles: int     # tiles of an image
+    units: int     # work units (image, tile), b-major
+
+
+def plan(b: int, p: int, c: int, l: int, itemsize: int, sms: int) -> Plan:
+    """How the kernel covers (B, P, C) images: G lanes a pixel (the largest
+    power of two up to 32 that the row's chunks fill), tiles of pt pixels
+    (a multiple of the block's pass, 8 warps x 32/G pixels x the pixels a
+    lane takes, where a stage holds one), a ring of STAGES tiles, two
+    blocks an SM where their shared memory fits (else one), and
+    min(units, blocks a wave) blocks, block i taking units
+    [units*i/grid, units*(i+1)/grid)."""
+    nc = c // chunk_values(c, itemsize)
+    g = 1 << (min(nc, 32).bit_length() - 1)
+    per_pass = 8 * (32 // g) * (2 if word_slots(l) <= 8 else 1)
+    pt = min(MAX_TILE, max(1, STAGE_BYTES // (c * itemsize)))
+    if pt >= per_pass:
+        pt -= pt % per_pass
+    elif pt >= 4:
+        pt -= pt % 4
+    pt = min(pt, _round_up(p, 4))
+    smem = smem_bytes(c, l, itemsize, pt, g, STAGES)
+    blocks = next((n for n in (BLOCKS_PER_SM, 1)
+                   if smem <= min(SMEM_LIMIT, SM_SMEM // n - SMEM_RESERVED)),
+                  None)
+    if blocks is None:
+        raise ValueError(f"no plan fits shared memory: C={c}, L={l}")
+    tiles = -(-p // pt)
+    units = b * tiles
+    return Plan(pt, g, STAGES, blocks, min(units, blocks * sms), tiles, units)
+
+
+def block_units(pl: Plan, block: int) -> range:
+    """The units block ``block`` walks, as the kernel computes them."""
+    return range(pl.units * block // pl.grid,
+                 pl.units * (block + 1) // pl.grid)
+
+
+def unit_tile(pl: Plan, u: int, p: int, row_bytes: int):
+    """(image, first pixel, pixels, bulk) of unit u: its tile goes by bulk
+    copy when its byte count and its offset in the images are multiples of
+    16 bytes, else by the block's own copies (the tail path)."""
+    b, t = divmod(u, pl.tiles)
+    p0 = t * pl.pt
+    n = min(pl.pt, p - p0)
+    bulk = (b * p + p0) * row_bytes % 16 == 0 and n * row_bytes % 16 == 0
+    return b, p0, n, bulk
 
 
 class WordAttention(torch.autograd.Function):
@@ -46,11 +145,16 @@ class WordAttention(torch.autograd.Function):
 
 
 @functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("word_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.word_attention.argtypes = [i, p, p, p, p, p, i, i, i, i,
-                                   ctypes.c_float, p]
+    lib.word_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   i, ctypes.c_float, p]
     lib.word_attention.restype = i
     return lib
 
@@ -80,13 +184,17 @@ def _launch(images: torch.Tensor, words: torch.Tensor,
     for name, t in (("images", images), ("words", words)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    bias = torch.where(mask == 0, NEG_INF, 0.0).to(torch.float32).contiguous()
+    if mask.dtype != torch.int32:     # the serving mask is int32 already
+        mask = (mask != 0).to(torch.int32)
+    mask = mask.contiguous()
+    pl = plan(b, h * w, c, l, images.element_size(), _sm_count(images.device))
     context = torch.empty_like(images)
     attn = torch.empty((b, l, h, w), dtype=torch.float32, device=images.device)
     status = _lib().word_attention(
         _build.DTYPE_CODES[images.dtype], images.data_ptr(), words.data_ptr(),
-        bias.data_ptr(), context.data_ptr(), attn.data_ptr(), b, h * w, c, l,
-        1.0 / math.sqrt(c), torch.cuda.current_stream(images.device).cuda_stream)
+        mask.data_ptr(), context.data_ptr(), attn.data_ptr(), b, h * w, c, l,
+        pl.pt, pl.g, pl.stages, pl.grid, 1.0 / math.sqrt(c),
+        torch.cuda.current_stream(images.device).cuda_stream)
     _build.check(status, "word_attention")
     word_attention_cuda.launches += 1
     return context, attn

@@ -147,8 +147,6 @@ def lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     so.upblock_fused_eval.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
     so.upblock_fused_eval.restype = i
-    so.upblock_fused_eval_packed.argtypes = [i, p, p, p, p, p, i, i, i, p]
-    so.upblock_fused_eval_packed.restype = i
     so.upblock_fused_eval_resident.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                i, p]
     so.upblock_fused_eval_resident.restype = i
@@ -167,6 +165,30 @@ def kernel_args(x: torch.Tensor, weight: torch.Tensor, bn_k: torch.Tensor,
     return wp, scale, bias, out
 
 
+def launch(x: torch.Tensor, weight: torch.Tensor, bn_k: torch.Tensor,
+           bn_b: torch.Tensor, resident: bool) -> torch.Tensor:
+    """One launch of csrc/upblock.cu on checked CUDA inputs: the resident
+    form (bf16 at ``RESIDENT_DIMS``) or the ``upblock_fused_eval`` entry.
+    Counts nothing: each wrapper counts its own launches."""
+    b, h, w, ci = x.shape
+    co = weight.shape[0] // 2
+    wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if resident:
+        status = lib().upblock_fused_eval_resident(
+            x.data_ptr(), resident_weights(wp).data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, ci, co,
+            resident_grid(b, h, w, _sm_count(x.device)), stream)
+        _build.check(status, "upblock_fused_eval (resident)")
+    else:
+        status = lib().upblock_fused_eval(
+            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
+            co, stream)
+        _build.check(status, "upblock_fused_eval")
+    return out
+
+
 def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
                             bn_k: torch.Tensor,
                             bn_b: torch.Tensor) -> torch.Tensor:
@@ -179,24 +201,10 @@ def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     check_inputs("upblock_fused_eval_cuda", x, weight, bn_k, bn_b)
-    b, h, w, ci = x.shape
-    co = weight.shape[0] // 2
-    wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16 and (ci, co) in RESIDENT_DIMS:
-        wr = resident_weights(wp)
-        status = lib().upblock_fused_eval_resident(
-            x.data_ptr(), wr.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, h, w, ci, co,
-            resident_grid(b, h, w, _sm_count(x.device)), stream)
-        _build.check(status, "upblock_fused_eval (resident)")
-        upblock_fused_eval_cuda.resident_launches += 1
-    else:
-        status = lib().upblock_fused_eval(
-            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
-            co, stream)
-        _build.check(status, "upblock_fused_eval")
+    resident = (x.dtype == torch.bfloat16
+                and (x.shape[3], weight.shape[0] // 2) in RESIDENT_DIMS)
+    out = launch(x, weight, bn_k, bn_b, resident)
+    upblock_fused_eval_cuda.resident_launches += resident
     upblock_fused_eval_cuda.launches += 1
     return out
 

@@ -4,15 +4,20 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
 1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at
-   once), with each kernel's registers and spills from ptxas; the resident
-   K2 kernel and the tensor-core DAMSM forward and backward must not spill;
+   once), with each kernel's registers and spills from ptxas; the streaming
+   K1 kernel, the resident K2 kernel and the tensor-core DAMSM forward and
+   backward must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
    and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
    also timed (device time of one call, median of 20, see ``time_ms``)
-   beside the card's bound; K2 beside the plain serving chain too
-   (``chain_ms``: upsample, bf16 conv, eval BN, GLU as the generator runs
-   them without the kernel); then the DAMSM similarity (K4) and its backward
+   beside the card's bound; each K1-K3 line names the kernel's form (K1:
+   ``stream`` and its plan; K2 and K3: ``resident`` in bf16, ``cuda_cores``
+   in fp32, as their launch counters must show); K3 must launch the
+   resident form in bf16 without moving K2's counters, and give K2's bits
+   on the same inputs; K2 beside the plain serving chain too (``chain_ms``:
+   upsample, bf16 conv, eval BN, GLU as the generator runs them without
+   the kernel); then the DAMSM similarity (K4) and its backward
    (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
    square at batch 64, 192 x 192, the sharded shape 16 x 64, and scores of
    ~1e3 at batch 64, timed beside their bound and plain versions (each
@@ -24,9 +29,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
-   counters reset just before each call and read just after (K2's bf16
-   calls take its resident-weight form: 2 a call); then fp32 at
-   batch 2 against the port's own CPU run with the same weights and noise;
+   counters reset just before each call and read just after: exactly 2 K1
+   launches and 2 of the path's UpBlock kernel, both in the resident form,
+   and every other counter (the other path's UpBlock kernel's included) at
+   0; then fp32 at batch 2 against the port's own CPU run with the same
+   weights and noise;
 4. throughput: img/s over 5 windows, through K2, through K3 and with the
    kernels off, the three paths taking their windows in turns;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
@@ -67,8 +74,8 @@ BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
 TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
-NO_SPILL = ("upblock_resident_kernel", "damsm_bwd_tc_kernel",
-            "damsm_fwd_tc_kernel")
+NO_SPILL = ("word_attention_stream_kernel", "upblock_resident_kernel",
+            "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel")
 L2_BYTES = 50 * 2 ** 20
 SLEEP_CYCLES = 10 ** 8   # ~50 ms at the H100's 1.98 GHz peak SM clock
 # kernel vs plain version on the same inputs. fp32: same arithmetic in
@@ -154,15 +161,20 @@ def ptxas_usage(log: str) -> list:
     """[[kernel, registers, spill stores, spill loads]] from nvcc's
     ``-Xptxas -v`` report (a kernel's lines follow its "Compiling entry
     function" line)."""
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
     rows = []
     for line in log.splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"[a-z_]+kernel(?:I(?:Li\d+E)+E)?",
-                             entry.group(1))
-            rows.append([re.sub(r"I((?:Li\d+E)+)E", lambda m: "<" + ",".join(
-                re.findall(r"Li(\d+)E", m.group(1))) + ">", name.group(0))
-                         if name else entry.group(1), None, None, None])
+            name = re.search(r"([a-z_]+kernel)(?:I(f|13__nv_bfloat16)?"
+                             r"((?:Li\d+E)+)E)?", entry.group(1))
+            if name and name.group(3):      # template arguments: <T,ints>
+                args = ([types[name.group(2)]] if name.group(2) else []) + \
+                    re.findall(r"Li(\d+)E", name.group(3))
+                label = f"{name.group(1)}<{','.join(args)}>"
+            else:
+                label = name.group(1) if name else entry.group(1)
+            rows.append([label, None, None, None])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if spill and rows:
@@ -243,6 +255,15 @@ def check_kernels(torch, card_name: str) -> dict:
     batch in bf16, the serving type: ms, plain_ms, bound_ms, bound_by,
     max_abs_err. fp32 at the serving batch is timed too (printed, not in
     the totals): it is the CUDA-core form of the UpBlock kernels."""
+    from attngan_torch.ops.cuda_attention import plan
+    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda as k2
+    from attngan_torch.ops.cuda_upblock_packed import (
+        upblock_fused_eval_packed_cuda as k3,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    upblock_counts = lambda: (k2.launches, k2.resident_launches,
+                              k3.launches, k3.resident_launches)
     totals = {}
     for dtype, batch, timed in ((torch.float32, CHECK_BATCH, False),
                                 (torch.bfloat16, CHECK_BATCH, False),
@@ -252,16 +273,33 @@ def check_kernels(torch, card_name: str) -> dict:
         for name, fn, plain, args, flops, gen in kernel_cases(
                 torch, dtype, batch, seed=batch):
             before = fn.launches
-            resident = getattr(fn, "resident_launches", 0)
+            ub_before = upblock_counts()
             got = fn(*args)
             torch.cuda.synchronize()
             fail_unless(fn.launches == before + 1,
                         f"{name} counted {fn.launches - before} launches")
-            if name == "upblock_fused_eval":   # bf16 at Ci=64 -> Co=32
-                want_res = resident + (dtype == torch.bfloat16)
-                fail_unless(fn.resident_launches == want_res,
-                            f"{name} {tname}: resident launches "
-                            f"{fn.resident_launches}, expected {want_res}")
+            bf16 = dtype == torch.bfloat16
+            if name == "word_attention":
+                b, h, w, c = args[0].shape
+                form = {"form": "stream", "plan": plan(
+                    b, h * w, c, SEQ_LEN, args[0].element_size(),
+                    sms)._asdict()}
+            else:
+                # bf16 at Ci=64 -> Co=32 takes the resident form, fp32 the
+                # CUDA cores; K3 counts its own launches, K2's do not move
+                form = {"form": "resident" if bf16 else "cuda_cores"}
+                k3_path = name == "upblock_fused_eval_packed"
+                want_counts = (ub_before[0] + (not k3_path),
+                               ub_before[1] + (bf16 and not k3_path),
+                               ub_before[2] + k3_path,
+                               ub_before[3] + (bf16 and k3_path))
+                fail_unless(upblock_counts() == want_counts,
+                            f"{name} {tname}: (K2, K2 resident, K3, K3 "
+                            f"resident) launches {ub_before} -> "
+                            f"{upblock_counts()}, expected {want_counts}")
+                if k3_path:
+                    fail_unless(torch.equal(got, k2(*args)),
+                                f"{name} {gen} {tname}: not K2's bits")
             want = plain(*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -276,7 +314,8 @@ def check_kernels(torch, card_name: str) -> dict:
                                            f"{tname} B={batch}: {m}")
                 err = max(err, float((a.float() - b.float()).abs().max()))
             line = {"phase": "kernel_check", "kernel": name, "shape": gen,
-                    "dtype": tname, "batch": batch, "max_abs_err": err}
+                    "dtype": tname, "batch": batch, "max_abs_err": err,
+                    **form}
             if timed:
                 moved = nbytes(*args, *got)
                 peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
@@ -294,7 +333,8 @@ def check_kernels(torch, card_name: str) -> dict:
             if timed and dtype == torch.bfloat16:
                 t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0,
                                                  bound_ms=0.0, max_abs_err=0.0,
-                                                 bytes_ms=0.0, flops_ms=0.0))
+                                                 bytes_ms=0.0, flops_ms=0.0,
+                                                 form=form["form"]))
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
                 if "chain_ms" in line:
@@ -666,10 +706,12 @@ def serve(torch, card_name: str) -> dict:
         gen = torch.Generator("cuda").manual_seed(1)
         sampler.generate_from_tokens(tokens, lengths, generator=gen)  # warm
         torch.cuda.synchronize()
-        k2 = counters["upblock_fused_eval"]
+        upblocks = {name: counters[name] for name in
+                    ("upblock_fused_eval", "upblock_fused_eval_packed")}
         for fn in counters.values():
             fn.launches = 0
-        k2.resident_launches = 0
+        for fn in upblocks.values():
+            fn.resident_launches = 0
         imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
@@ -677,11 +719,14 @@ def serve(torch, card_name: str) -> dict:
         fail_unless(counts == expect,
                     f"fused_upsample={mode!r}: launches {counts}, "
                     f"expected {expect}")
-        # the K2 path's two UpBlocks (Ci=64 -> Co=32, bf16) take the
-        # resident-weight kernel
-        fail_unless(k2.resident_launches == (2 if mode is True else 0),
-                    f"fused_upsample={mode!r}: {k2.resident_launches} "
-                    f"resident K2 launches")
+        # the path's two UpBlocks (Ci=64 -> Co=32, bf16) take the
+        # resident-weight kernel, counted by the path's own wrapper only
+        resident = {name: fn.resident_launches
+                    for name, fn in upblocks.items()}
+        want_res = {name: 2 if name in want[mode] else 0 for name in upblocks}
+        fail_unless(resident == want_res,
+                    f"fused_upsample={mode!r}: resident launches {resident}, "
+                    f"expected {want_res}")
         for name in want[mode]:
             launches[name] = counts[name]
         std = float(imgs.float().std())
@@ -694,7 +739,7 @@ def serve(torch, card_name: str) -> dict:
         print(json.dumps({"phase": "serve", "fused_upsample": mode,
                           "batch": BATCH, "shape": list(imgs.shape),
                           "launches": counts,
-                          "k2_resident_launches": k2.resident_launches,
+                          "resident_launches": resident,
                           "mean": float(imgs.float().mean()), "std": std}),
               flush=True)
 

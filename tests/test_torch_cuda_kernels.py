@@ -10,7 +10,10 @@ Tolerances: fp32 at 1e-4 absolute (the same arithmetic in another summation
 order, TF32 off). bf16 outputs at 1e-2 absolute plus 2^-7 relative: one
 bf16 rounding step that a difference in fp32 summation order can flip.
 The bf16 UpBlock at Ci=64 -> Co=32 takes the resident-weight wgmma
-kernel, counted by ``upblock_fused_eval_cuda.resident_launches``.
+kernel, counted by ``upblock_fused_eval_cuda.resident_launches``; K3
+(``upblock_fused_eval_packed_cuda``) launches the same kernel, counted by
+its own ``resident_launches``. Word attention (K1) gives the same bits on
+a second launch.
 Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
 (fp32 end to end): sims within 1e-4 relative and 1e-5 absolute; gradients
 within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
@@ -66,8 +69,13 @@ def _randn(gen, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,c,l", [(3, 33, 7, 32, 5), (2, 64, 64, 32, 13),
-                                       (1, 5, 5, 8, 32)])
+@pytest.mark.parametrize("b,h,w,c,l", [
+    (3, 33, 7, 32, 5), (2, 64, 64, 32, 13), (1, 5, 5, 8, 32),
+    (64, 64, 64, 32, 5),      # the serving path's gen2 call
+    (64, 128, 128, 32, 5),    # and its gen3 call
+    (3, 5, 5, 4, 5),          # C = 4: 8-byte bf16 rows, the tail path
+    (2, 21, 11, 12, 32),      # C % 8 == 4, 32 words, odd P
+])
 def test_word_attention_kernel_matches_plain(cuda, dtype, b, h, w, c, l):
     images = _randn(cuda, b, h, w, c).to(dtype)
     words = _randn(cuda, b, l, c).to(dtype)
@@ -81,6 +89,26 @@ def test_word_attention_kernel_matches_plain(cuda, dtype, b, h, w, c, l):
     assert ctx.dtype == dtype and attn.shape == (b, l, h, w)
     torch.testing.assert_close(ctx.float(), want_ctx.float(), **TOL[dtype])
     torch.testing.assert_close(attn, want_attn, atol=1e-5, rtol=0.0)
+    again = word_attention_cuda(images, words, mask)       # same bits
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], attn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_word_attention_kernel_float_and_empty_masks(cuda, dtype):
+    b, h, w, c, l = 4, 16, 16, 32, 5
+    images = _randn(cuda, b, h, w, c).to(dtype)
+    words = _randn(cuda, b, l, c).to(dtype)
+    real = torch.arange(l, device="cuda")[None] < torch.tensor(
+        [5, 2, 1, 0], device="cuda")[:, None]    # image 3: every word masked
+    for mask in (real.float() * 0.5, real, real.int()):
+        ctx, attn = word_attention_cuda(images, words, mask)
+        want_ctx, want_attn = word_attention(images, words, mask)
+        torch.testing.assert_close(ctx.float(), want_ctx.float(),
+                                   **TOL[dtype])
+        torch.testing.assert_close(attn, want_attn, atol=1e-5, rtol=0.0)
+        assert float(attn[2, 1:].abs().max()) == 0.0
+        torch.testing.assert_close(attn[3], torch.full_like(attn[3], 0.2),
+                                   atol=1e-6, rtol=0.0)
 
 
 def test_word_attention_gradient_recomputes_through_plain(cuda):
@@ -170,16 +198,35 @@ def test_upblock_other_dims_keep_the_warp_level_kernel(cuda, dtype, ci, co):
                                **TOL[dtype])
 
 
+def _upblock_counts():
+    return (upblock_fused_eval_cuda.launches,
+            upblock_fused_eval_cuda.resident_launches,
+            upblock_fused_eval_packed_cuda.launches,
+            upblock_fused_eval_packed_cuda.resident_launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w", [(2, 20, 36), (1, 64, 64)])
 def test_packed_kernel_matches_plain(cuda, dtype, b, h, w):
     args = _upblock_args(cuda, b, h, w, 64, 32, dtype)
-    before = upblock_fused_eval_packed_cuda.launches
+    before = _upblock_counts()
     got = upblock_fused_eval_packed_cuda(*args)
     torch.cuda.synchronize()
-    assert upblock_fused_eval_packed_cuda.launches == before + 1
+    # K3's own counters move (resident in bf16); K2's do not
+    resident = dtype == torch.bfloat16
+    assert _upblock_counts() == (before[0], before[1], before[2] + 1,
+                                 before[3] + resident)
     torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [(64, 64, 64), (3, 18, 40)])
+def test_packed_gives_k2s_bits(cuda, dtype, b, h, w):
+    """K3 runs K2's kernel at these dims: the same bits on the same inputs."""
+    args = _upblock_args(cuda, b, h, w, 64, 32, dtype)
+    assert torch.equal(upblock_fused_eval_packed_cuda(*args),
+                       upblock_fused_eval_cuda(*args))
 
 
 def test_upblock_kernels_reject_what_they_do_not_take(cuda):

@@ -5,7 +5,9 @@ csrc/upblock.cu::upblock_resident_kernel runs only on the card (marker
 version). Its B operand and its work-unit plan are made in Python, in
 ops/cuda_upblock.py: the arranged weights must unpack to the parity weights
 exactly, and the persistent blocks' units must cover every output pixel
-exactly once, ragged edges included.
+exactly once, ragged edges included. K3 (ops/cuda_upblock_packed.py)
+launches the same kernel in bf16 and the CUDA-core kernel in fp32; which
+one is a pure function of the type (``packed_form``), checked here.
 """
 
 import numpy as np
@@ -22,6 +24,12 @@ from attngan_torch.ops.cuda_upblock import (
     resident_weights,
     upblock_fused_eval,
     upblock_fused_eval_cuda,
+)
+from attngan_torch.ops.cuda_upblock_packed import (
+    CI,
+    CO,
+    packed_form,
+    upblock_fused_eval_packed_cuda,
 )
 
 
@@ -90,3 +98,39 @@ def test_resident_counter_untouched_on_cpu(rng):
                        upblock_fused_eval(x, weight, k, b))
     assert (upblock_fused_eval_cuda.launches,
             upblock_fused_eval_cuda.resident_launches) == before
+
+
+# --- K3: served by the resident form in bf16 --------------------------------
+
+@pytest.mark.parametrize("dtype,form", [(torch.bfloat16, "resident"),
+                                        (torch.float32, "cuda_cores")])
+def test_packed_route_by_dtype(dtype, form):
+    assert (CI, CO) in RESIDENT_DIMS       # K3's dims are the resident form's
+    assert packed_form(dtype, CI, CO, 64, 64) == form
+    assert packed_form(dtype, CI, CO, 128, 6) == form
+
+
+@pytest.mark.parametrize("ci,co,h,w", [(32, 32, 8, 8), (64, 16, 8, 8),
+                                       (128, 64, 8, 8), (64, 32, 8, 7),
+                                       (64, 32, 5, 8)])
+def test_packed_route_rejects_other_dims(ci, co, h, w):
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="Ci=64|even"):
+            packed_form(dtype, ci, co, h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_cpu_path_leaves_every_counter_untouched(rng, dtype):
+    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 64)).astype(
+        np.float32)).to(dtype)
+    weight = torch.from_numpy(
+        (rng.standard_normal((64, 64, 3, 3)) * 0.05).astype(np.float32))
+    k, b = torch.ones(64), torch.zeros(64)
+    counters = lambda: (upblock_fused_eval_cuda.launches,
+                        upblock_fused_eval_cuda.resident_launches,
+                        upblock_fused_eval_packed_cuda.launches,
+                        upblock_fused_eval_packed_cuda.resident_launches)
+    before = counters()
+    assert torch.equal(upblock_fused_eval_packed_cuda(x, weight, k, b),
+                       upblock_fused_eval(x, weight, k, b))
+    assert counters() == before
