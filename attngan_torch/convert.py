@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX ``InferState`` or ``DamsmState`` -> the port.
+"""Weight bridge: a JAX ``InferState``, ``DamsmState`` or ``GanState`` -> the
+port.
 
 The input is a flat ``{path: np.ndarray}`` dict keyed by the flax path
 joined with "/" under the three subtrees sampling touches, e.g.
@@ -34,6 +35,15 @@ named fields by name: ``opt_state/0/count``, ``opt_state/0/mu/rnn/w_ih_fwd``,
 parameter's layout and become torch Adam's ``exp_avg`` / ``exp_avg_sq``,
 the count its ``step``. The state's PRNG key has no counterpart (the port
 draws dropout from a torch.Generator) and is not part of the input.
+
+A flattened ``GanState`` is read by ``load_gan_flat``: ``gen_params`` /
+``gen_stats`` as an InferState's, ``disc_params/<res>/...`` and
+``disc_stats/<res>/...`` by ``_disc_key`` (flax's ``DownBlock_1/Conv_0``
+-> the port's ``down.1.conv``), ``gen_opt_state/0/...`` and
+``disc_opt_states/<res>/0/...`` as the DamsmState's ``opt_state``,
+``rnn_params``, ``cnn_params/{trunk/...,emb_features,emb_cnn_code}`` and
+``cnn_stats/trunk/...`` (the whole frozen image encoder) and ``step``.
+Its PRNG key is not part of the input either.
 tools/convert_torch_weights.py is the trunk mapping in the other direction.
 """
 
@@ -199,18 +209,54 @@ def block_state_dict(params: Mapping[str, np.ndarray],
     return sd
 
 
+def _put(sd: dict, key: str, value, src: str) -> None:
+    if key in sd:
+        raise KeyError(f"{src!r} maps onto {key!r} twice")
+    sd[key] = value
+
+
+def _add_hh_biases(rnn: dict) -> None:
+    """The JAX BiLSTM has one bias a direction: bias_hh is zero."""
+    for name, b in list(rnn.items()):
+        if ".bias_ih_" in name:
+            rnn[name.replace("bias_ih", "bias_hh")] = torch.zeros_like(b)
+
+
+def _adam_slot(adam: dict, name: str, moment: str, value, src: str) -> None:
+    """One optax moment leaf (``moment`` "mu" or "nu") into adam[name] as
+    torch Adam's exp_avg / exp_avg_sq."""
+    _put(adam.setdefault(name, {}),
+         "exp_avg" if moment == "mu" else "exp_avg_sq", value, src)
+
+
+def _load_adam(optimizer: torch.optim.Optimizer,
+               params: Mapping[str, torch.nn.Parameter], adam: dict,
+               count: int) -> None:
+    """Fill torch Adam's state of ``params`` (name -> parameter) from
+    {name: {"exp_avg", "exp_avg_sq"}} and optax's count; raises unless the
+    moments cover the parameters exactly, in their shapes."""
+    if set(adam) != set(params):
+        raise KeyError(f"Adam state does not cover the trainable parameters:"
+                       f" missing {sorted(set(params) - set(adam))}, "
+                       f"extra {sorted(set(adam) - set(params))}")
+    for name, p in params.items():
+        slot = adam[name]
+        if set(slot) != {"exp_avg", "exp_avg_sq"}:
+            raise KeyError(f"Adam state of {name} lacks mu or nu")
+        for k, v in slot.items():
+            if v.shape != p.shape:
+                raise RuntimeError(f"Adam {k} of {name}: {tuple(v.shape)} vs "
+                                   f"{tuple(p.shape)}")
+        optimizer.state[p] = {"step": torch.tensor(float(count)),
+                              **{k: v.to(p.device) for k, v in slot.items()}}
+
+
 def convert_damsm_flat(flat: Mapping[str, np.ndarray]) -> dict:
     """Flat JAX DamsmState -> {"rnn": state_dict, "cnn": state_dict,
     "adam": {port parameter name: {"exp_avg", "exp_avg_sq"}}, "count",
     "step"}; port parameter names as DamsmState.trainable() gives them."""
     rnn, cnn, adam, trunk, stats = {}, {}, {}, {}, {}
     count = step = None
-
-    def put(sd, key, value, src):
-        if key in sd:
-            raise KeyError(f"{src!r} maps onto {key!r} twice")
-        sd[key] = value
-
     for key, value in flat.items():
         tree, _, path = key.partition("/")
         if tree not in _DAMSM_TREES:
@@ -218,9 +264,9 @@ def convert_damsm_flat(flat: Mapping[str, np.ndarray]) -> dict:
         if tree == "step":
             step = int(np.asarray(value))
         elif tree == "rnn_params":
-            put(rnn, _rnn_key(path), _layout(value, path != "embedding"), key)
+            _put(rnn, _rnn_key(path), _layout(value, path != "embedding"), key)
         elif tree == "cnn_head_params":
-            put(cnn, _head_key(path), _layout(value), key)
+            _put(cnn, _head_key(path), _layout(value), key)
         elif tree in ("cnn_trunk_params", "cnn_stats"):
             if not path.startswith("trunk/"):
                 raise KeyError(f"unexpected trunk leaf {key!r}")
@@ -239,14 +285,10 @@ def convert_damsm_flat(flat: Mapping[str, np.ndarray]) -> dict:
                 value = _layout(value)
             else:
                 raise KeyError(f"unexpected optimizer leaf {key!r}")
-            slot = adam.setdefault(name, {})
-            put(slot, "exp_avg" if moment == "mu" else "exp_avg_sq", value,
-                key)
+            _adam_slot(adam, name, moment, value, key)
     for k, v in block_state_dict(trunk, stats).items():
-        put(cnn, k, v, k)
-    for name, b in list(rnn.items()):        # the JAX BiLSTM has one bias
-        if ".bias_ih_" in name:
-            rnn[name.replace("bias_ih", "bias_hh")] = torch.zeros_like(b)
+        _put(cnn, k, v, k)
+    _add_hh_biases(rnn)
     if count is None or step is None:
         raise KeyError("missing opt_state/0/count or step")
     return {"rnn": rnn, "cnn": cnn, "adam": adam, "count": count,
@@ -260,21 +302,120 @@ def load_damsm_flat(flat: Mapping[str, np.ndarray], state) -> None:
     sd = convert_damsm_flat(flat)
     state.rnn.load_state_dict(sd["rnn"], strict=True)
     state.cnn.load_state_dict(sd["cnn"], strict=True)
-    params = dict(state.trainable())
-    if set(sd["adam"]) != set(params):
-        raise KeyError(f"Adam state does not cover the trainable parameters:"
-                       f" missing {sorted(set(params) - set(sd['adam']))}, "
-                       f"extra {sorted(set(sd['adam']) - set(params))}")
-    for name, p in params.items():
-        slot = sd["adam"][name]
-        if set(slot) != {"exp_avg", "exp_avg_sq"}:
-            raise KeyError(f"Adam state of {name} lacks mu or nu")
-        for k, v in slot.items():
-            if v.shape != p.shape:
-                raise RuntimeError(f"Adam {k} of {name}: {tuple(v.shape)} vs "
-                                   f"{tuple(p.shape)}")
-        state.optimizer.state[p] = {
-            "step": torch.tensor(float(sd["count"])),
-            **{k: v.to(p.device) for k, v in slot.items()}}
+    _load_adam(state.optimizer, dict(state.trainable()), sd["adam"],
+               sd["count"])
     state.step = sd["step"]
     state.frozen_trunk = None    # the trunk changed: refold at first use
+
+
+# ----------------------------------------------------------------- GanState
+
+_GAN_TREES = ("gen_params", "gen_stats", "disc_params", "disc_stats",
+              "gen_opt_state", "disc_opt_states", "rnn_params", "cnn_params",
+              "cnn_stats", "step")
+
+
+def _disc_key(path: str) -> str:
+    """'DownBlock_1/TorchBatchNorm_0/scale' -> 'down.1.bn.weight' (the port's
+    models/discriminators.py); 'ImageEncoder16x_0/Conv_2/kernel' ->
+    'encoder.conv.2.weight'; the head 'Conv_0/bias' -> 'head.bias'."""
+    *scope, leaf = path.split("/")
+    if leaf in _LEAVES and scope:
+        if scope == ["Conv_0"]:
+            return f"head.{_LEAVES[leaf]}"
+        block = re.fullmatch(r"(ImageEncoder16x|DownBlock|Block3x3LeakyRelu)_"
+                             r"(\d)", scope[0]) if len(scope) == 2 else None
+        layer = re.fullmatch(r"(Conv|TorchBatchNorm)_(\d)", scope[-1])
+        if block and layer:
+            kind = "conv" if layer[1] == "Conv" else "bn"
+            if block[1] == "ImageEncoder16x" and block[2] == "0":
+                return f"encoder.{kind}.{layer[2]}.{_LEAVES[leaf]}"
+            if block[1] != "ImageEncoder16x" and layer[2] == "0":
+                group = "down" if block[1] == "DownBlock" else "squeeze"
+                return f"{group}.{block[2]}.{kind}.{_LEAVES[leaf]}"
+    raise KeyError(f"unknown discriminator path {path!r}")
+
+
+def convert_gan_flat(flat: Mapping[str, np.ndarray]) -> dict:
+    """Flat JAX GanState -> {"generator": state_dict, "discs": {res:
+    state_dict}, "rnn": state_dict, "cnn": state_dict, "adam": {"gen" or
+    res: {parameter name: {"exp_avg", "exp_avg_sq"}}}, "count": {"gen" or
+    res: optax count}, "step"}. ``res`` is the resolution as a string, the
+    key of ``GanState.discs``."""
+    gen, rnn, cnn, trunk, stats = {}, {}, {}, {}, {}
+    discs, adam, count = {}, {}, {}
+    step = None
+    for key, value in flat.items():
+        tree, _, path = key.partition("/")
+        if tree not in _GAN_TREES:
+            raise KeyError(f"unexpected key {key!r}: not under {_GAN_TREES}")
+        if tree == "step":
+            step = int(np.asarray(value))
+        elif tree in ("gen_params", "gen_stats"):
+            _put(gen, _generator_key(path), _generator_value(path, value), key)
+        elif tree in ("disc_params", "disc_stats"):
+            res, _, path = path.partition("/")
+            _put(discs.setdefault(res, {}), _disc_key(path), _layout(value),
+                 key)
+        elif tree == "rnn_params":
+            _put(rnn, _rnn_key(path), _layout(value, path != "embedding"), key)
+        elif tree in ("cnn_params", "cnn_stats"):
+            if path.startswith("trunk/"):
+                (trunk if tree == "cnn_params" else stats)[path] = value
+            elif tree == "cnn_params":
+                _put(cnn, _head_key(path), _layout(value), key)
+            else:
+                raise KeyError(f"unexpected trunk leaf {key!r}")
+        else:
+            who = "gen"
+            if tree == "disc_opt_states":
+                who, _, path = path.partition("/")
+            idx, moment, rest = (path.split("/", 2) + ["", ""])[:3]
+            if idx != "0" or not moment:
+                raise KeyError(f"unexpected optimizer leaf {key!r}")
+            if moment == "count" and not rest:
+                _put(count, who, int(np.asarray(value)), key)
+                continue
+            if moment not in ("mu", "nu") or not rest:
+                raise KeyError(f"unexpected optimizer leaf {key!r}")
+            if who == "gen":
+                name, value = _generator_key(rest), _generator_value(rest,
+                                                                     value)
+            else:
+                name, value = _disc_key(rest), _layout(value)
+            _adam_slot(adam.setdefault(who, {}), name, moment, value, key)
+    for k, v in block_state_dict(trunk, stats).items():
+        _put(cnn, k, v, k)
+    _add_hh_biases(rnn)
+    if step is None:
+        raise KeyError("missing step")
+    return {"generator": gen, "discs": discs, "rnn": rnn, "cnn": cnn,
+            "adam": adam, "count": count, "step": step}
+
+
+def load_gan_flat(flat: Mapping[str, np.ndarray], state) -> None:
+    """Fill a ``train.gan_trainer.GanState`` in place: generator and
+    discriminator weights and BN statistics, the four Adam states (moments
+    and counts), the frozen BiLSTM and image encoder, the step. Raises on
+    any key missing or left over on either side, or a shape that
+    disagrees."""
+    sd = convert_gan_flat(flat)
+    if set(sd["discs"]) != set(state.discs):
+        raise KeyError(f"discriminators {sorted(sd['discs'])} in the input, "
+                       f"{sorted(state.discs)} in the state")
+    state.gen.load_state_dict(sd["generator"], strict=True)
+    for res, disc in state.discs.items():
+        disc.load_state_dict(sd["discs"][res], strict=True)
+    state.rnn.load_state_dict(sd["rnn"], strict=True)
+    state.cnn.load_state_dict(sd["cnn"], strict=True)
+    optimizers = {"gen": (state.gen_optimizer, state.gen),
+                  **{res: (state.disc_optimizers[res], disc)
+                     for res, disc in state.discs.items()}}
+    if set(sd["count"]) != set(optimizers):
+        raise KeyError(f"optimizer counts for {sorted(sd['count'])}, "
+                       f"expected {sorted(optimizers)}")
+    for who, (optimizer, module) in optimizers.items():
+        _load_adam(optimizer, dict(module.named_parameters()),
+                   sd["adam"].get(who, {}), sd["count"][who])
+    state.step = sd["step"]
+    state.frozen_trunk = None    # the trunk may have changed: refold

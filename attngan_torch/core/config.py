@@ -1,12 +1,12 @@
-"""Configuration of the serving path and of DAMSM pretraining.
+"""Configuration of serving, DAMSM pretraining and the GAN step.
 
 The port keeps its own copies of the JAX package's ``GanConfig`` and
 ``DamsmConfig`` (attngan_tpu/core/config.py) instead of importing them: the
 port imports nothing of that package. Field names and model-shape defaults
 are the same, so a checkpoint's recorded config reads the same in both.
-Only the fields the port uses are copied: ``GanConfig``'s training fields
-come with the GAN-step slice, and ``DamsmConfig``'s feature cache, int8
-trunk, train-mode trunk BN and superbatch each come with their own slice.
+Only the fields the port uses are copied: ``DamsmConfig``'s feature cache,
+int8 trunk, train-mode trunk BN and superbatch each come with their own
+slice.
 """
 
 from __future__ import annotations
@@ -45,17 +45,40 @@ class DamsmConfig:
 
 @dataclass(frozen=True)
 class GanConfig:
-    """Generator / text-encoder shapes and the serving switches."""
+    """Generator / discriminator / text-encoder shapes, the serving switches
+    and the GAN step (attngan_tpu/core/config.py::GanConfig)."""
 
     gf_dim: int = 32            # generator base width
+    df_dim: int = 64            # discriminator base width
     emb_dim: int = 256          # text embedding width
     cond_dim: int = 100         # conditioning-augmentation width
     z_dim: int = 100            # noise width
     seq_len: int = 5            # max caption tokens (static shape)
+    batch_size: int = 16
+    gen_lr: float = 2e-4
+    disc_lr: float = 2e-4
+    betas: Tuple[float, float] = (0.5, 0.999)
+    epochs: int = 150
+    # DAMSM temperatures of the G-step's DAMSM term
+    gamma1: float = 4.0
+    gamma2: float = 5.0
+    gamma3: float = 10.0
+    wlambda: float = 5.0
+    slambda: float = 5.0
     num_stages: int = 3         # 1 => 64px only; 2 => +128 attention; 3 => full
+    label_smooth: float = 0.8   # low bound of the standard loss's real labels
+    loss_variant: str = "non_saturating"  # or "standard"
     compute_dtype: str = "bfloat16"
-    # The JAX package leaves both kernels off by default because of
-    # measurements on a TPU v5e (its config.py:87-95, generator.py:84-88).
+    image_encoder: str = "inception_v3"  # the DAMSM coupling's; or "tiny"
+    # The JAX package's remat_coupling (jax.checkpoint of the coupling) and
+    # reuse_gen_forward (one generator forward through jax.vjp, False
+    # recomputing it inside the G-step's grad) choose how XLA schedules the
+    # same step. They are accepted and change nothing here: autograd keeps
+    # the one generator forward's graph either way, as the reference does.
+    remat_coupling: bool = False
+    reuse_gen_forward: bool = True
+    # The JAX package leaves both generator kernels off by default because
+    # of measurements on a TPU v5e (its config.py:87-95, generator.py:84-88).
     # On the GPU the hand-written kernels ARE the path: on by default, and a
     # CUDA tensor never falls back to the plain PyTorch version.
     fused_attention: bool = True
@@ -64,11 +87,18 @@ class GanConfig:
     # dims fit; "packed64" = the specialisation only at a 64^2 input. The
     # names keep the JAX meaning (attngan_tpu/ops/layers.py:282-289).
     fused_upsample: bool | str = True
+    # The G-step's words loss through the DAMSM kernels (ops/cuda_damsm.py),
+    # as DamsmConfig.fused_similarity; False runs the plain form.
+    fused_similarity: bool = True
+
+    @property
+    def resolutions(self) -> Tuple[int, ...]:
+        return (64, 128, 256)[: self.num_stages]
 
 
 # the fields that fix the weights' shapes (a checkpoint records them)
-SHAPE_FIELDS = ("gf_dim", "emb_dim", "cond_dim", "z_dim", "seq_len",
-                "num_stages")
+SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
+                "seq_len", "num_stages")
 
 
 def replace(cfg, **kw):

@@ -1,4 +1,5 @@
-"""Conv / norm blocks of the generator: port of attngan_tpu/ops/layers.py.
+"""Conv / norm blocks of the generator and the discriminators: port of
+attngan_tpu/ops/layers.py.
 
 Tensors are NCHW, kept in ``torch.channels_last`` memory so that
 ``x.permute(0, 2, 3, 1)`` is the zero-copy NHWC view the kernels take.
@@ -44,13 +45,26 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """A bias-free conv run in ``dtype``."""
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
-                    padding=layer.padding)
+    """``layer``'s conv (its stride, padding and bias, if any) run in
+    ``dtype``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
+                    stride=layer.stride, padding=layer.padding)
 
 
 def conv3x3(in_features: int, out_features: int) -> nn.Conv2d:
     return nn.Conv2d(in_features, out_features, 3, padding=1, bias=False)
+
+
+def conv4x4_down(in_features: int, out_features: int,
+                 bias: bool = False) -> nn.Conv2d:
+    """4x4 stride-2 conv, padding 1: halves H and W."""
+    return nn.Conv2d(in_features, out_features, 4, stride=2, padding=1,
+                     bias=bias)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.2)
 
 
 class BatchNorm(nn.Module):
@@ -135,3 +149,50 @@ class ResBlock(nn.Module):
         y = glu(self.bn1(conv(x, self.conv1, self.dtype)))
         y = self.bn2(conv(y, self.conv2, self.dtype))
         return y + x
+
+
+class DownBlock(nn.Module):
+    """conv4x4 stride 2 (no bias) -> BN -> LeakyReLU(0.2)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv4x4_down(in_features, out_features)
+        self.bn = BatchNorm(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.bn(conv(x, self.conv, self.dtype)))
+
+
+class Block3x3LeakyRelu(nn.Module):
+    """conv3x3 -> BN -> LeakyReLU(0.2), same spatial size."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv3x3(in_features, out_features)
+        self.bn = BatchNorm(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.bn(conv(x, self.conv, self.dtype)))
+
+
+class ImageEncoder16x(nn.Module):
+    """Four 4x4 stride-2 convs: (B, 3, H, W) -> (B, 8*df, H/16, W/16). The
+    first has no BN; the others are conv -> BN -> LeakyReLU(0.2)."""
+
+    def __init__(self, df_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        widths = (3, df_dim, 2 * df_dim, 4 * df_dim, 8 * df_dim)
+        self.conv = nn.ModuleList(conv4x4_down(a, b)
+                                  for a, b in zip(widths, widths[1:]))
+        self.bn = nn.ModuleList(BatchNorm(w) for w in widths[2:])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = leaky_relu(conv(x, self.conv[0], self.dtype))
+        for layer, bn in zip(self.conv[1:], self.bn):
+            x = leaky_relu(bn(conv(x, layer, self.dtype)))
+        return x

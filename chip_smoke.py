@@ -19,9 +19,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    upsample, bf16 conv, eval BN, GLU as the generator runs them without
    the kernel); then the DAMSM similarity (K4) and its backward
    (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
-   square at batch 64, 192 x 192, the sharded shape 16 x 64, and scores of
-   ~1e3 at batch 64, timed beside their bound and plain versions (each
-   line names the kernel's form, ``tc_3xtf32`` on the tensor cores or
+   square at batch 64, 192 x 192, the sharded shape 16 x 64, the GAN
+   step's coupling 16 x 16 at L=5, and scores of ~1e3 at batch 64, timed
+   beside their bound and plain versions (each line names the kernel's
+   form, ``tc_3xtf32`` on the tensor cores or
    ``cuda_cores``, and gives ``tc_bound_ms`` beside ``bound_ms``; K4's
    also time its tensor-core form on other grids, ``grid_ms`` by S, the
    blocks per image: the backward's S, a block per text tile (S = K), and
@@ -46,8 +47,18 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    (with ``--profile``: device time by kernel and operator, the device's
    idle share and the host's time in the CUDA runtime over 3 serving calls
    per path and 3 training steps, from torch.profiler;)
-6. one ``{"kernels": [...]}`` line, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+6. the GAN step (GanConfig defaults: gf 32, df 64, emb 256, 3 stages, 5
+   words, bf16; the Inception-v3 trunk with seeded random weights) at
+   batch 16: one step with the launch counters reset just before and read
+   just after (K1 twice, K4 once, K5 twice, the forward and the backward's
+   pass on the tensor cores once each, nothing else); 20 steps with finite
+   metrics that move every parameter and BN statistic of the generator and
+   the discriminators; the fp32 step at batch 2 against the port's CPU
+   run; GAN steps/s with the kernels and with the plain paths, in turns;
+   (with ``--profile``: 3 GAN steps under torch.profiler;)
+7. one ``{"kernels": [...]}`` line (launches summed over every path's
+   counted call), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no ok line.
 Without a GPU, or without the repository around it, it exits non-zero too.
@@ -65,6 +76,7 @@ import tempfile
 import time
 
 BATCH = 64            # serving batch of the full-width run
+GAN_BATCH = 16        # GanConfig.batch_size: the GAN step's batch
 CHECK_BATCH = 8       # batch of the fp32 / bf16 per-kernel checks
 SEQ_LEN, VOCAB = 5, 1000
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -102,6 +114,14 @@ GRAD_RTOL, GRAD_ATOL_SHARE = 1e-3, 1e-5
 # norm to 1e-3 relative, gradients to 1e-3 relative plus 1e-3 of the
 # largest entry: a 94-conv trunk (cuDNN vs CPU algorithms) feeds the loss
 STEP_RTOL, STEP_GRAD_ATOL_SHARE = 1e-3, 1e-3
+GAN_STEPS = 20        # full-width GAN steps whose metrics must stay finite
+GAN_CHECK_BATCH = 2   # the fp32 GAN step against the CPU
+# ... and its gradients, in norm: the fakes differ by rounding (~1e-5) and
+# the discriminators' leaky ReLUs and the trunk's ReLUs flip where an input
+# lies within it of 0; the G-step runs through discriminators that Adam
+# moved by +-lr, differently where their gradients straddle 0. Before
+# models/cnn_encoder.py::_avg_pool3x3 the generator's was off by half.
+GAN_GRAD_RTOL = 0.1
 
 
 def card() -> str:
@@ -347,15 +367,14 @@ def check_kernels(torch, card_name: str) -> dict:
     return totals
 
 
-def damsm_inputs(torch, gen, bi, bt, extreme=False):
+def damsm_inputs(torch, gen, bi, bt, extreme=False, seq=DAMSM_SEQ):
     dev = torch.device("cuda")
     img = torch.randn(bi, DAMSM_REGIONS, DAMSM_DIM, generator=gen, device=dev)
-    words = torch.randn(bt, DAMSM_SEQ, DAMSM_DIM, generator=gen, device=dev)
+    words = torch.randn(bt, seq, DAMSM_DIM, generator=gen, device=dev)
     if extreme:               # text 0's scores ~ +-1e3, the others' O(1)
         words[0] *= 250.0
-    lengths = torch.randint(1, DAMSM_SEQ + 1, (bt,), generator=gen,
-                            device=dev)
-    mask = (torch.arange(DAMSM_SEQ, device=dev)[None] < lengths[:, None]
+    lengths = torch.randint(1, seq + 1, (bt,), generator=gen, device=dev)
+    mask = (torch.arange(seq, device=dev)[None] < lengths[:, None]
             ).to(torch.int32)
     g = torch.randn(bi, bt, generator=gen, device=dev)
     return img, words, mask, g
@@ -370,7 +389,9 @@ def tc_form(counter, before: int) -> str:
 def check_damsm_kernels(torch, card_name: str) -> dict:
     """Phase 2, DAMSM: K4 and the backward against their plain versions in
     fp32 at full width; timed at 64 x 64 (K4, K5), 192 x 192 (K4 and K6 on
-    the B=192 step) and 16 x 64 (K6 on a data-parallel shard's rows).
+    the B=192 step), 16 x 64 (K6 on a data-parallel shard's rows) and 16 x
+    16 at 5 words (K4 and K5 in the GAN step's DAMSM coupling: tiles of 12
+    texts, 60 word rows, the second tile of 4).
     Returns per kernel name: ms, plain_ms, bound_ms, bytes_ms, flops_ms,
     max_abs_err, form and tc_bound_ms (its products, two in K4 and six in
     the backward, at 3 TF32 products each on the tensor cores, or bytes if
@@ -390,17 +411,18 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
     gen = torch.Generator("cuda").manual_seed(11)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     totals = {}
-    pair_flops = 2 * DAMSM_SEQ * DAMSM_DIM * DAMSM_REGIONS   # one product
     # the shape each kernel meets on the pretrain step, for the totals
     report_at = {"damsm_similarity": "square64",
                  "damsm_similarity_bwd_square": "square64",
                  "damsm_similarity_bwd_tiled": "big192"}
-    for label, bi, bt, extreme in (
-            ("square64", DAMSM_BATCH, DAMSM_BATCH, False),
-            ("big192", DAMSM_BIG, DAMSM_BIG, False),
-            ("rect16x64", 16, DAMSM_BATCH, False),
-            ("extreme64", DAMSM_BATCH, DAMSM_BATCH, True)):
-        img, words, mask, g = damsm_inputs(torch, gen, bi, bt, extreme)
+    for label, bi, bt, extreme, seq in (
+            ("square64", DAMSM_BATCH, DAMSM_BATCH, False, DAMSM_SEQ),
+            ("big192", DAMSM_BIG, DAMSM_BIG, False, DAMSM_SEQ),
+            ("rect16x64", 16, DAMSM_BATCH, False, DAMSM_SEQ),
+            ("gan16", GAN_BATCH, GAN_BATCH, False, SEQ_LEN),
+            ("extreme64", DAMSM_BATCH, DAMSM_BATCH, True, DAMSM_SEQ)):
+        pair_flops = 2 * seq * DAMSM_DIM * DAMSM_REGIONS     # one product
+        img, words, mask, g = damsm_inputs(torch, gen, bi, bt, extreme, seq)
         square = bi == bt <= 128
         bwd = damsm_similarity_bwd_square if square else \
             damsm_similarity_bwd_tiled
@@ -435,7 +457,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
                               for a, b in zip(grads, want_grads))}
         for name, err in errs.items():
             line = {"phase": "kernel_check", "kernel": name, "shape": label,
-                    "dtype": "float32", "bi": bi, "bt": bt,
+                    "dtype": "float32", "bi": bi, "bt": bt, "words": seq,
                     "max_abs_err": err, "form": forms[name]}
             if not extreme:
                 if name == "damsm_similarity":
@@ -457,8 +479,8 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
                             bytes=moved, flops=flops, card=card_name)
                 if name == "damsm_similarity":
                     # the tensor-core form on its grid and on the others
-                    _, k, s_bwd = plan(bi, bt, DAMSM_SEQ, DAMSM_DIM, sms)
-                    s = plan(bi, bt, DAMSM_SEQ, DAMSM_DIM, sms, slack=1.0)[2]
+                    _, k, s_bwd = plan(bi, bt, seq, DAMSM_DIM, sms)
+                    s = plan(bi, bt, seq, DAMSM_DIM, sms, slack=1.0)[2]
                     line["splits"] = s
                     line["grid_ms"] = {
                         str(n): time_ms(lambda: _launch_fwd(
@@ -552,7 +574,8 @@ def pretrain(torch, card_name: str):
         metrics = {k: float(v) for k, v in m.items()}
         fail_unless(all(np.isfinite(v) for v in metrics.values()),
                     f"non-finite metrics {metrics}")
-        launches.update(want)
+        for name, n in want.items():
+            launches[name] = launches.get(name, 0) + n
         print(json.dumps({"phase": "pretrain_step", "batch": b,
                           "launches": counts, "tc_launches": tc,
                           **metrics}), flush=True)
@@ -637,6 +660,215 @@ def pretrain_throughput(torch, trainer, state, batch, card_name: str) -> None:
             "phase": "pretrain_throughput", "path": label,
             "batch": DAMSM_BATCH, "steps_per_s": median,
             "images_per_s": median * DAMSM_BATCH, "windows": windows,
+            "spread_pct": 100 * (max(windows) - min(windows)) / median,
+            "card": card_name}), flush=True)
+
+
+def gan_batch(torch, rng, batch: int, resolutions) -> dict:
+    """A GAN batch made from ``rng``: random captions of SEQ_LEN tokens, real
+    images in [-1, 1] at each resolution on the card; the lengths stay on
+    the host, where the BiLSTM's packing reads them."""
+    return {
+        "tokens": torch.as_tensor(rng.integers(0, VOCAB, (batch, SEQ_LEN)),
+                                  device="cuda"),
+        "lengths": torch.as_tensor(rng.integers(1, SEQ_LEN + 1, batch)),
+        "class_ids": torch.as_tensor(rng.integers(0, 50, batch),
+                                     device="cuda"),
+        **{f"img{r}": torch.as_tensor(rng.uniform(-1, 1, (batch, r, r, 3)),
+                                      dtype=torch.float32, device="cuda")
+           for r in resolutions}}
+
+
+def gan_tensors(state) -> dict:
+    """{name: tensor} of the generator's and discriminators' parameters and
+    BN statistics."""
+    return {**{f"gen.{k}": v for k, v in state.gen.state_dict().items()},
+            **{f"disc{k}": v for k, v in state.discs.state_dict().items()}}
+
+
+def gan(torch, card_name: str):
+    """Phase 6: the full-width GAN step (GanConfig defaults: gf 32, df 64,
+    emb 256, 3 stages, 5 words, bf16; the Inception-v3 trunk with seeded
+    random weights; vocab 1000) at batch 16. One step with the launch
+    counters reset just before and read just after: K1 twice (the gen2 and
+    gen3 forwards; the backward recomputes through the plain version), K4
+    once and K5 twice, each on the tensor cores once, nothing else; 20
+    steps, all metrics finite, every parameter and BN statistic of the
+    generator and the discriminators moved; the fp32 step at batch 2
+    against the port's CPU run. Returns ({kernel name: launches in its
+    step}, trainer, state, batch)."""
+    import numpy as np
+
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    counters = kernel_counters()
+    rng = np.random.default_rng(6)
+    cfg = GanConfig()
+    trainer = GanTrainer(cfg, VOCAB)
+    state = trainer.init_state(seed=0)
+    batch = gan_batch(torch, rng, GAN_BATCH, cfg.resolutions)
+    before = {k: v.clone() for k, v in gan_tensors(state).items()}
+    want = {"word_attention": 2, "damsm_similarity": 1,
+            "damsm_similarity_bwd_square": 2}
+    with_tc = ("damsm_similarity", "damsm_similarity_bwd_square",
+               "damsm_similarity_bwd_tiled")
+    metrics = [trainer.train_step(state, batch)[1]]              # warm
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for name in with_tc:
+        counters[name].tc_launches = 0
+    state, m = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    tc = {name: counters[name].tc_launches for name in with_tc}
+    full = {name: want.get(name, 0) for name in counters}
+    fail_unless(counts == full, f"GAN step: launches {counts}, expected {full}")
+    tc_want = {name: min(want.get(name, 0), 1) for name in with_tc}
+    fail_unless(tc == tc_want, f"GAN step: tensor-core launches {tc}, "
+                f"expected {tc_want}")
+    metrics.append(m)
+    print(json.dumps({"phase": "gan_step", "batch": GAN_BATCH,
+                      "launches": counts, "tc_launches": tc,
+                      **{k: float(v) for k, v in m.items()}}), flush=True)
+    for _ in range(GAN_STEPS - len(metrics)):
+        metrics.append(trainer.train_step(state, batch)[1])
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    fail_unless(all(np.isfinite(v) for m in metrics for v in m.values()),
+                f"non-finite GAN metrics {metrics}")
+    still = sorted(k for k, v in gan_tensors(state).items()
+                   if torch.equal(v, before[k]))
+    fail_unless(not still, f"did not move in {GAN_STEPS} steps: {still}")
+    print(json.dumps({"phase": "gan_steps", "batch": GAN_BATCH,
+                      "steps": len(metrics), "tensors_moved": len(before),
+                      "metrics": {k: [m[k] for m in metrics]
+                                  for k in metrics[0]}}), flush=True)
+    gan_fp32_vs_cpu(torch, rng)
+    return want, trainer, state, batch
+
+
+def gan_fp32_vs_cpu(torch, rng) -> None:
+    """One fp32 GAN step at batch GAN_CHECK_BATCH (full width, the kernels
+    on: K1, K4 and K5 in fp32) on the card and on the CPU from the same
+    seeded weights, noise and eps. Held: the metrics within STEP_RTOL
+    relative; the parameters after the step, and the generator's BN
+    statistics, with phase 5's rule (STEP_RTOL relative plus
+    STEP_GRAD_ATOL_SHARE of the largest entry); in norm within
+    GAN_GRAD_RTOL, the gradients (each discriminator tensor's, the
+    generator's as a whole) and the discriminators' BN statistics. The step
+    is Adam's first (count 1), which moves a weight by lr g / (|g| + eps):
+    about +-lr whatever the gradient's size, so a parameter may differ by
+    the two updates' difference more (the elements where it exceeds
+    lr / 1000 are counted and printed: chiefly gradients on two sides of 0,
+    and at batch 2 gen1.fc's, ~1e-8 where the InitialStage's BatchNorm1d
+    maps each feature of its 2 samples to about +-1). The discriminators'
+    statistics take their last move in the G-side pass, through parameters
+    that differ so.
+    """
+    import numpy as np
+
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    cfg = GanConfig(compute_dtype="")
+    batch = {k: v.cpu() for k, v in
+             gan_batch(torch, rng, GAN_CHECK_BATCH, cfg.resolutions).items()}
+    noise = torch.from_numpy(rng.standard_normal(
+        (GAN_CHECK_BATCH, cfg.z_dim), dtype=np.float32))
+    eps = torch.from_numpy(rng.standard_normal(
+        (GAN_CHECK_BATCH, cfg.cond_dim), dtype=np.float32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = GanTrainer(cfg, VOCAB, device=dev)
+        state = trainer.init_state(seed=7)
+        state, m = trainer.train_step(state, batch, noise=noise, eps=eps)
+        modules = {"gen": state.gen, **{f"disc{r}": d
+                                        for r, d in state.discs.items()}}
+        grads = {f"{w}.{k}": p.grad.cpu() for w, mod in modules.items()
+                 for k, p in mod.named_parameters()}
+        runs[dev] = ({k: float(v) for k, v in m.items()}, grads,
+                     {k: v.cpu() for k, v in gan_tensors(state).items()})
+    (m_gpu, g_gpu, t_gpu), (m_cpu, g_cpu, t_cpu) = runs["cuda"], runs["cpu"]
+    metric_err = max(abs(m_gpu[k] - v) / abs(v) for k, v in m_cpu.items())
+    def rel_norm(keys):
+        return float(sum((g_gpu[k] - g_cpu[k]).square().sum() for k in keys)
+                     .sqrt() / sum(g_cpu[k].square().sum() for k in keys)
+                     .sqrt())
+
+    grad_err = {"gen": rel_norm([k for k in g_cpu if k.startswith("gen.")])}
+    for res in cfg.resolutions:
+        grad_err[f"disc{res}"] = max(rel_norm([k]) for k in g_cpu
+                                     if k.startswith(f"disc{res}."))
+    # Adam's first step moves a weight by lr g / (|g| + eps): where the two
+    # gradients of an element differ (held above in norm), its parameters
+    # may differ by the two updates' difference
+    def update(g):
+        return cfg.gen_lr * g / (g.abs() + 1e-8)
+
+    moved, param_err, stat_err = 0, 0.0, 0.0
+    for k, b in t_cpu.items():
+        a, scale = t_gpu[k], float(b.abs().max()) or 1.0
+        if k.startswith("disc") and k not in g_cpu:
+            # a discriminator's BN statistic: last moved by the G-side pass
+            # through parameters that differ by the updates' difference
+            stat_err = max(stat_err, float((a - b).norm() / b.norm()))
+            continue
+        allow = 0.0
+        if k in g_cpu:                # a parameter
+            allow = (update(g_gpu[k]) - update(g_cpu[k])).abs()
+            moved += int((allow > STEP_RTOL * cfg.gen_lr).sum())
+        excess = float(((a - b).abs() - allow - STEP_RTOL * b.abs()).max())
+        param_err = max(param_err, excess / scale)
+        fail_unless(excess <= STEP_GRAD_ATOL_SHARE * scale,
+                    f"fp32 GAN step: {k} differs by {excess} beyond rtol "
+                    f"{STEP_RTOL} and the two Adam updates' difference")
+    print(json.dumps({"phase": "gan_fp32_vs_cpu", "batch": GAN_CHECK_BATCH,
+                      "metrics_gpu": m_gpu, "metrics_cpu": m_cpu,
+                      "max_rel_metric_err": metric_err,
+                      "grad_rel_norm_err": grad_err,
+                      "max_param_excess_over_max": param_err,
+                      "disc_stat_rel_norm_err": stat_err,
+                      "elements_whose_updates_differ": moved}), flush=True)
+    fail_unless(metric_err <= STEP_RTOL,
+                f"fp32 GAN step: metrics differ by {metric_err} relative")
+    fail_unless(max(grad_err.values()) <= GAN_GRAD_RTOL,
+                f"fp32 GAN step: gradients differ by {grad_err} of their "
+                f"norms")
+    fail_unless(stat_err <= GAN_GRAD_RTOL,
+                f"fp32 GAN step: discriminator statistics differ by "
+                f"{stat_err} of their norms")
+
+
+def gan_throughput(torch, trainer, state, batch, card_name: str) -> None:
+    """GAN steps/s and images/s at batch 16 over 6 windows of 4 steps, with
+    the kernels and with the plain paths (fused_attention and
+    fused_similarity off: K1 and the words loss in PyTorch ops), the two
+    taking their windows in turns, each on its own state from one seed."""
+    from attngan_torch.core.config import replace
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    plain = GanTrainer(replace(trainer.cfg, fused_attention=False,
+                               fused_similarity=False), VOCAB)
+    paths = (("kernels", trainer, state),
+             ("plain", plain, plain.init_state(seed=0)))
+    for _, t, st in paths:
+        t.train_step(st, batch)
+    torch.cuda.synchronize()
+    rates = {label: [] for label, _, _ in paths}
+    for round_ in range(6):
+        for label, t, st in paths[round_ % 2:] + paths[:round_ % 2]:
+            start = time.perf_counter()
+            for _ in range(4):
+                t.train_step(st, batch)
+            torch.cuda.synchronize()
+            rates[label].append(4 / (time.perf_counter() - start))
+    for label, windows in rates.items():
+        median = statistics.median(windows)
+        print(json.dumps({
+            "phase": "gan_throughput", "path": label, "batch": GAN_BATCH,
+            "steps_per_s": median, "images_per_s": median * GAN_BATCH,
+            "windows": windows,
             "spread_pct": 100 * (max(windows) - min(windows)) / median,
             "card": card_name}), flush=True)
 
@@ -728,7 +960,7 @@ def serve(torch, card_name: str) -> dict:
                     f"fused_upsample={mode!r}: resident launches {resident}, "
                     f"expected {want_res}")
         for name in want[mode]:
-            launches[name] = counts[name]
+            launches[name] = launches.get(name, 0) + counts[name]
         std = float(imgs.float().std())
         fail_unless(tuple(imgs.shape) == (BATCH, 256, 256, 3),
                     f"image shape {tuple(imgs.shape)}")
@@ -888,18 +1120,39 @@ def main() -> int:
     print(json.dumps({"phase": "build", "total_s": time.perf_counter() - t0}),
           flush=True)
 
+    seconds = {"build": time.perf_counter() - t0}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
     totals = check_kernels(torch, card_name)
     totals.update(check_damsm_kernels(torch, card_name))
+    lap("kernel_checks")
     launches, samplers, tokens, lengths = serve(torch, card_name)
     throughput(torch, samplers, tokens, lengths, card_name)
     if "--profile" in sys.argv[1:]:
         profile(torch, samplers, tokens, lengths, card_name)
     del samplers
+    lap("serving")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
-    launches.update(damsm_launches)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
         profile_pretrain(torch, trainer, state, batch, card_name)
+    del trainer, state, batch
+    lap("pretrain")
+    gan_launches, trainer, state, batch = gan(torch, card_name)
+    gan_throughput(torch, trainer, state, batch, card_name)
+    if "--profile" in sys.argv[1:]:
+        stats = profile_calls(torch, lambda: trainer.train_step(state, batch))
+        print(json.dumps({"phase": "profile", "path": "gan_step",
+                          "batch": GAN_BATCH, **stats, "card": card_name}),
+              flush=True)
+    lap("gan")
+    print(json.dumps({"phase": "seconds", **seconds}), flush=True)
+    # launches summed over every path: serving, pretrain, GAN step
+    for counted in (damsm_launches, gan_launches):
+        for name, n in counted.items():
+            launches[name] = launches.get(name, 0) + n
 
     replaces = {
         "word_attention": ("attngan_torch/csrc/word_attention.cu",

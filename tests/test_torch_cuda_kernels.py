@@ -24,6 +24,13 @@ forward and the backward's pass run on the tensor cores in 3xTF32 at D a
 multiple of 32 and texts of at most 8 words (``tc_launches``) and are held
 to the same tolerances (tests/test_torch_port_damsm_tf32.py states their
 error on the CPU).
+
+The GAN step's shapes and modes: K4 and K5 at 16 x 16 with 5 words (the
+G-step's DAMSM coupling); K1's gradient under autograd at batch 16 in bf16
+(the train-mode generator), which must equal the plain path's; the trunk's
+average pool's gradient for channels_last maps against the CPU's; one fp32
+GAN step at tiny dims on the card against the CPU, tolerances in its
+docstring.
 """
 
 import pytest
@@ -415,3 +422,125 @@ def test_damsm_forward_grids_give_the_same_bits(cuda, bi, bt):
     for n in (1, k):
         assert torch.equal(_launch_fwd(img, words, mask, 4.0, 5.0, splits=n),
                            want)
+
+
+# ---- the GAN step's shapes and modes
+
+def test_damsm_kernels_at_the_gan_coupling_shape(cuda):
+    """K4 and K5 in the G-step's DAMSM coupling: 16 x 16, 5 words (tiles of
+    12 texts, 60 word rows, the second tile of 4), R = 289, D = 256."""
+    img, words, mask, g = _damsm_args(cuda, 16, 16, 5, 289, 256)
+    mask[3] = 0                                  # a text with no real word
+    fwd, bwd = _counts(damsm_similarity), _counts(damsm_similarity_bwd_square)
+    sims = damsm_similarity(img, words, mask)
+    got = damsm_similarity_bwd(img, words, mask, g)
+    torch.cuda.synchronize()
+    assert _counts(damsm_similarity) == (fwd[0] + 1, fwd[1] + 1)
+    assert _counts(damsm_similarity_bwd_square) == (bwd[0] + 2, bwd[1] + 1)
+    want = similarity_plain(img, words, mask)
+    assert bool(torch.isneginf(sims[:, 3]).all())
+    torch.testing.assert_close(sims, want, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(got, similarity_bwd_plain(img, words, mask, g))
+    assert float(got[1][3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hw", [64, 128])
+def test_word_attention_gradient_at_the_gan_shapes_in_bf16(cuda, hw):
+    """K1 under autograd at the train-mode generator's shapes (batch 16,
+    gf = 32, 5 words, bf16): the kernel's forward, the plain version's
+    recompute in the backward, with d_attn zero (the maps do not enter the
+    loss); the gradient equals the plain path's."""
+    b, c, l = 16, 32, 5
+    images = _randn(cuda, b, hw, hw, c).to(torch.bfloat16)
+    words = _randn(cuda, b, l, c).to(torch.bfloat16)
+    lengths = torch.randint(1, l + 1, (b,), generator=cuda, device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).int()
+    d_ctx = _randn(cuda, b, hw, hw, c).to(torch.bfloat16)
+    grads = []
+    for fn in (word_attention_cuda, word_attention):
+        im = images.clone().requires_grad_()
+        wd = words.clone().requires_grad_()
+        before = word_attention_cuda.launches
+        ctx, _ = fn(im, wd, mask)
+        (ctx.float() * d_ctx.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert word_attention_cuda.launches == before + (
+            fn is word_attention_cuda)          # the backward launches none
+        grads.append((im.grad, wd.grad))
+    for a, b_ in zip(*grads):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b_.float(),
+                                   **TOL[torch.bfloat16])
+
+
+def test_gan_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 GAN step at tiny dims (3 stages, the tiny image encoder) on
+    the card, with K1, K4 and K5, against the port's CPU run from the same
+    seeded weights, noise and eps: metrics to 1e-4 relative, gradients to
+    1e-3 relative plus 1e-3 of the largest entry, parameters and BN
+    statistics to 1e-4 (an element whose two gradients lie on two sides of
+    0 may differ by 2 lr more: Adam moves it by about +-lr either way)."""
+    import numpy as np
+
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    cfg = GanConfig(gf_dim=4, df_dim=4, emb_dim=16, cond_dim=4, z_dim=4,
+                    seq_len=4, image_encoder="tiny", compute_dtype="")
+    rng = np.random.default_rng(0)
+    b = 3
+    batch = {"tokens": rng.integers(0, 30, (b, 4)),
+             "lengths": np.array([4, 2, 3]), "class_ids": np.array([0, 1, 0]),
+             **{f"img{r}": np.tanh(rng.standard_normal((b, r, r, 3))
+                                   ).astype(np.float32)
+                for r in cfg.resolutions}}
+    noise = torch.from_numpy(rng.standard_normal((b, 4), dtype=np.float32))
+    eps = torch.from_numpy(rng.standard_normal((b, 4), dtype=np.float32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = GanTrainer(cfg, 30, device=dev)
+        state = trainer.init_state(seed=3)
+        k1 = word_attention_cuda.launches
+        state, m = trainer.train_step(state, batch, noise=noise, eps=eps)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert word_attention_cuda.launches == k1 + 2
+        modules = {"gen": state.gen, **state.discs}
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     {f"{w}.{k}": (p.detach().cpu(), p.grad.cpu())
+                      for w, mod in modules.items()
+                      for k, p in mod.named_parameters()},
+                     {f"{w}.{k}": v.cpu() for w, mod in modules.items()
+                      for k, v in mod.named_buffers()})
+    (m_gpu, p_gpu, s_gpu), (m_cpu, p_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-4 * abs(v), (k, m_gpu[k], v)
+    for k, (p, g) in p_cpu.items():
+        p2, g2 = p_gpu[k]
+        torch.testing.assert_close(g2, g, rtol=1e-3,
+                                   atol=1e-3 * float(g.abs().max()))
+        allow = 2 * cfg.gen_lr * (torch.sign(g2) != torch.sign(g))
+        assert float(((p2 - p).abs() - allow).max()) <= 1e-4, k
+    for k, v in s_cpu.items():
+        torch.testing.assert_close(s_gpu[k], v, rtol=0.0, atol=1e-4)
+
+
+def test_trunk_avg_pool_gradient_in_channels_last(cuda):
+    """The Inception trunk's 3x3 average pool, which the GAN step
+    differentiates through, gives the CPU's gradient for the trunk's
+    channels_last maps on the card (F.avg_pool2d's CUDA backward does not
+    for a channels_last input: models/cnn_encoder.py::_avg_pool3x3)."""
+    from attngan_torch.models.cnn_encoder import _avg_pool3x3
+
+    x = _randn(cuda, 4, 192, 35, 35).to(memory_format=torch.channels_last)
+    w = _randn(cuda, 4, 192, 35, 35)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xi = x.to(dev).clone().requires_grad_()
+        y = _avg_pool3x3(xi)
+        torch.testing.assert_close(
+            y.cpu(), torch.nn.functional.avg_pool2d(x.cpu(), 3, 1, 1),
+            atol=1e-6, rtol=1e-6)
+        (y * w.to(dev)).sum().backward()
+        grads.append(xi.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
