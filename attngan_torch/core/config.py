@@ -5,8 +5,10 @@ The port keeps its own copies of the JAX package's ``GanConfig`` and
 port imports nothing of that package. Field names and model-shape defaults
 are the same, so a checkpoint's recorded config reads the same in both.
 Only the fields the port uses are copied: ``DamsmConfig``'s feature cache,
-int8 trunk, train-mode trunk BN and superbatch each come with their own
-slice.
+int8 trunk, train-mode trunk BN and superbatch, and ``GanConfig``'s epochs,
+each come with their own slice. ``GanConfig``'s ``remat_coupling`` and
+``reuse_gen_forward`` have no counterpart: they choose how XLA schedules
+the same step, and autograd keeps the one generator forward's graph.
 """
 
 from __future__ import annotations
@@ -58,7 +60,6 @@ class GanConfig:
     gen_lr: float = 2e-4
     disc_lr: float = 2e-4
     betas: Tuple[float, float] = (0.5, 0.999)
-    epochs: int = 150
     # DAMSM temperatures of the G-step's DAMSM term
     gamma1: float = 4.0
     gamma2: float = 5.0
@@ -70,13 +71,6 @@ class GanConfig:
     loss_variant: str = "non_saturating"  # or "standard"
     compute_dtype: str = "bfloat16"
     image_encoder: str = "inception_v3"  # the DAMSM coupling's; or "tiny"
-    # The JAX package's remat_coupling (jax.checkpoint of the coupling) and
-    # reuse_gen_forward (one generator forward through jax.vjp, False
-    # recomputing it inside the G-step's grad) choose how XLA schedules the
-    # same step. They are accepted and change nothing here: autograd keeps
-    # the one generator forward's graph either way, as the reference does.
-    remat_coupling: bool = False
-    reuse_gen_forward: bool = True
     # The JAX package leaves both generator kernels off by default because
     # of measurements on a TPU v5e (its config.py:87-95, generator.py:84-88).
     # On the GPU the hand-written kernels ARE the path: on by default, and a

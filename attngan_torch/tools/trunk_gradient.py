@@ -3,7 +3,8 @@ step's DAMSM coupling differentiates through it.
 
 Prints one JSON line with:
 - ``avg_pool``: PyTorch's ``F.avg_pool2d(x, 3, 1, 1)`` backward against the
-  same window sum as a depthwise conv, on CUDA, for a channels_last and an
+  port's pool (``models/cnn_encoder.py::_avg_pool3x3``, the same window sum
+  as a depthwise conv), on CUDA, for a channels_last and an
   NCHW input, in fp32 and fp64 (relative norm of the gradients'
   difference), at Mixed_5b's input (4, 192, 35, 35);
 - ``trunk``: the gradient of a fixed random projection of the trunk's
@@ -41,12 +42,6 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def _window_sum(x: torch.Tensor) -> torch.Tensor:
-    c = x.shape[1]
-    ones = torch.ones((c, 1, 3, 3), dtype=x.dtype, device=x.device)
-    return F.conv2d(x, ones, padding=1, groups=c) / 9.0
-
-
 def avg_pool_gradients() -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     out = {}
@@ -59,7 +54,8 @@ def avg_pool_gradients() -> dict:
             w = torch.randn(x.shape, generator=gen, device="cuda",
                             dtype=dtype)
             grads = []
-            for fn in (lambda t: F.avg_pool2d(t, 3, 1, 1), _window_sum):
+            for fn in (lambda t: F.avg_pool2d(t, 3, 1, 1),
+                       cnn_encoder._avg_pool3x3):
                 xi = x.clone().requires_grad_()
                 (fn(xi) * w).sum().backward()
                 grads.append(xi.grad)

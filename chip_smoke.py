@@ -9,8 +9,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    backward must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
-   and bf16 at batch 8, then fp32 and bf16 at the serving batch, which are
-   also timed (device time of one call, median of 20, see ``time_ms``)
+   and bf16 at batch 8, bf16 at the GAN step's batch 16 (K1's shapes in the
+   train-mode generator), then fp32 and bf16 at the serving batch, which
+   are also timed (device time of one call, median of 20, see ``time_ms``)
    beside the card's bound; each K1-K3 line names the kernel's form (K1:
    ``stream`` and its plan; K2 and K3: ``resident`` in bf16, ``cuda_cores``
    in fp32, as their launch counters must show); K3 must launch the
@@ -54,7 +55,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    pass on the tensor cores once each, nothing else); 20 steps with finite
    metrics that move every parameter and BN statistic of the generator and
    the discriminators; the fp32 step at batch 2 against the port's CPU
-   run; GAN steps/s with the kernels and with the plain paths, in turns;
+   run, and two faulty steps (gradient faults only) that this check must
+   catch; GAN steps/s with the kernels and with the plain paths, in turns;
    (with ``--profile``: 3 GAN steps under torch.profiler;)
 7. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
@@ -76,7 +78,6 @@ import tempfile
 import time
 
 BATCH = 64            # serving batch of the full-width run
-GAN_BATCH = 16        # GanConfig.batch_size: the GAN step's batch
 CHECK_BATCH = 8       # batch of the fp32 / bf16 per-kernel checks
 SEQ_LEN, VOCAB = 5, 1000
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -120,7 +121,9 @@ GAN_CHECK_BATCH = 2   # the fp32 GAN step against the CPU
 # the discriminators' leaky ReLUs and the trunk's ReLUs flip where an input
 # lies within it of 0; the G-step runs through discriminators that Adam
 # moved by +-lr, differently where their gradients straddle 0. Before
-# models/cnn_encoder.py::_avg_pool3x3 the generator's was off by half.
+# models/cnn_encoder.py::_avg_pool3x3 the generator's was off by half. On
+# an H100 80GB HBM3 at 700 W the generator's read 1.8e-2, and each of
+# gan_faults 0.96-0.98 (the gan_fp32_vs_cpu line's faulty_steps).
 GAN_GRAD_RTOL = 0.1
 
 
@@ -275,6 +278,7 @@ def check_kernels(torch, card_name: str) -> dict:
     batch in bf16, the serving type: ms, plain_ms, bound_ms, bound_by,
     max_abs_err. fp32 at the serving batch is timed too (printed, not in
     the totals): it is the CUDA-core form of the UpBlock kernels."""
+    from attngan_torch.core.config import GanConfig
     from attngan_torch.ops.cuda_attention import plan
     from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda as k2
     from attngan_torch.ops.cuda_upblock_packed import (
@@ -287,6 +291,8 @@ def check_kernels(torch, card_name: str) -> dict:
     totals = {}
     for dtype, batch, timed in ((torch.float32, CHECK_BATCH, False),
                                 (torch.bfloat16, CHECK_BATCH, False),
+                                (torch.bfloat16, GanConfig().batch_size,
+                                 False),
                                 (torch.float32, BATCH, True),
                                 (torch.bfloat16, BATCH, True)):
         tname = str(dtype).split(".")[-1]
@@ -396,6 +402,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
     max_abs_err, form and tc_bound_ms (its products, two in K4 and six in
     the backward, at 3 TF32 products each on the tensor cores, or bytes if
     more) at the shapes of the pretrain step."""
+    from attngan_torch.core.config import GanConfig
     from attngan_torch.ops.cuda_damsm import (
         _launch_fwd,
         damsm_similarity,
@@ -410,6 +417,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
 
     gen = torch.Generator("cuda").manual_seed(11)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gan_b = GanConfig().batch_size
     totals = {}
     # the shape each kernel meets on the pretrain step, for the totals
     report_at = {"damsm_similarity": "square64",
@@ -419,7 +427,7 @@ def check_damsm_kernels(torch, card_name: str) -> dict:
             ("square64", DAMSM_BATCH, DAMSM_BATCH, False, DAMSM_SEQ),
             ("big192", DAMSM_BIG, DAMSM_BIG, False, DAMSM_SEQ),
             ("rect16x64", 16, DAMSM_BATCH, False, DAMSM_SEQ),
-            ("gan16", GAN_BATCH, GAN_BATCH, False, SEQ_LEN),
+            (f"gan{gan_b}", gan_b, gan_b, False, SEQ_LEN),
             ("extreme64", DAMSM_BATCH, DAMSM_BATCH, True, DAMSM_SEQ)):
         pair_flops = 2 * seq * DAMSM_DIM * DAMSM_REGIONS     # one product
         img, words, mask, g = damsm_inputs(torch, gen, bi, bt, extreme, seq)
@@ -689,14 +697,14 @@ def gan_tensors(state) -> dict:
 def gan(torch, card_name: str):
     """Phase 6: the full-width GAN step (GanConfig defaults: gf 32, df 64,
     emb 256, 3 stages, 5 words, bf16; the Inception-v3 trunk with seeded
-    random weights; vocab 1000) at batch 16. One step with the launch
+    random weights; vocab 1000) at its batch_size, 16. One step with the launch
     counters reset just before and read just after: K1 twice (the gen2 and
     gen3 forwards; the backward recomputes through the plain version), K4
     once and K5 twice, each on the tensor cores once, nothing else; 20
     steps, all metrics finite, every parameter and BN statistic of the
     generator and the discriminators moved; the fp32 step at batch 2
-    against the port's CPU run. Returns ({kernel name: launches in its
-    step}, trainer, state, batch)."""
+    against the port's CPU run, with its faulty steps. Returns ({kernel
+    name: launches in its step}, trainer, state, batch)."""
     import numpy as np
 
     from attngan_torch.core.config import GanConfig
@@ -707,7 +715,7 @@ def gan(torch, card_name: str):
     cfg = GanConfig()
     trainer = GanTrainer(cfg, VOCAB)
     state = trainer.init_state(seed=0)
-    batch = gan_batch(torch, rng, GAN_BATCH, cfg.resolutions)
+    batch = gan_batch(torch, rng, cfg.batch_size, cfg.resolutions)
     before = {k: v.clone() for k, v in gan_tensors(state).items()}
     want = {"word_attention": 2, "damsm_similarity": 1,
             "damsm_similarity_bwd_square": 2}
@@ -729,7 +737,7 @@ def gan(torch, card_name: str):
     fail_unless(tc == tc_want, f"GAN step: tensor-core launches {tc}, "
                 f"expected {tc_want}")
     metrics.append(m)
-    print(json.dumps({"phase": "gan_step", "batch": GAN_BATCH,
+    print(json.dumps({"phase": "gan_step", "batch": cfg.batch_size,
                       "launches": counts, "tc_launches": tc,
                       **{k: float(v) for k, v in m.items()}}), flush=True)
     for _ in range(GAN_STEPS - len(metrics)):
@@ -740,7 +748,7 @@ def gan(torch, card_name: str):
     still = sorted(k for k, v in gan_tensors(state).items()
                    if torch.equal(v, before[k]))
     fail_unless(not still, f"did not move in {GAN_STEPS} steps: {still}")
-    print(json.dumps({"phase": "gan_steps", "batch": GAN_BATCH,
+    print(json.dumps({"phase": "gan_steps", "batch": cfg.batch_size,
                       "steps": len(metrics), "tensors_moved": len(before),
                       "metrics": {k: [m[k] for m in metrics]
                                   for k in metrics[0]}}), flush=True)
@@ -748,28 +756,108 @@ def gan(torch, card_name: str):
     return want, trainer, state, batch
 
 
+def gan_fp32_step(torch, cfg, batch, noise, eps, dev: str, fault=None):
+    """One fp32 GAN step from seed 7 on ``dev``, under the context manager
+    ``fault()`` where given: (metrics, gradients, BN statistics), the last
+    two {name: CPU tensor} of the generator and the discriminators."""
+    import contextlib
+
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    trainer = GanTrainer(cfg, VOCAB, device=dev)
+    state = trainer.init_state(seed=7)
+    with (fault or contextlib.nullcontext)():
+        state, m = trainer.train_step(state, batch, noise=noise, eps=eps)
+    modules = {"gen": state.gen,
+               **{f"disc{r}": d for r, d in state.discs.items()}}
+    return ({k: float(v) for k, v in m.items()},
+            {f"{w}.{k}": p.grad.cpu() for w, mod in modules.items()
+             for k, p in mod.named_parameters()},
+            {f"{w}.{k}": v.cpu() for w, mod in modules.items()
+             for k, v in mod.named_buffers()})
+
+
+def gan_step_errors(cfg, got, ref) -> dict:
+    """How far step ``got`` lies from step ``ref`` (each gan_fp32_step's),
+    in the measures gan_fp32_vs_cpu holds."""
+    (m_a, g_a, s_a), (m_b, g_b, s_b) = got, ref
+
+    def rel_norm(keys, a, b):
+        return float(sum((a[k] - b[k]).square().sum() for k in keys).sqrt()
+                     / sum(b[k].square().sum() for k in keys).sqrt())
+
+    grad = {"gen": rel_norm([k for k in g_b if k.startswith("gen.")],
+                            g_a, g_b)}
+    for res in cfg.resolutions:
+        grad[f"disc{res}"] = max(rel_norm([k], g_a, g_b) for k in g_b
+                                 if k.startswith(f"disc{res}."))
+    gen_stat = max(float(((s_a[k] - v).abs() - STEP_RTOL * v.abs()).max())
+                   / (float(v.abs().max()) or 1.0)
+                   for k, v in s_b.items() if k.startswith("gen."))
+    disc_stat = max(rel_norm([k], s_a, s_b) for k in s_b
+                    if k.startswith("disc"))
+    return {"metric": max(abs(m_a[k] - v) / abs(v) for k, v in m_b.items()),
+            "grad": grad, "gen_stat": gen_stat, "disc_stat": disc_stat}
+
+
+def gan_step_agrees(err: dict) -> bool:
+    return (err["metric"] <= STEP_RTOL
+            and max(err["grad"].values()) <= GAN_GRAD_RTOL
+            and err["gen_stat"] <= STEP_GRAD_ATOL_SHARE
+            and err["disc_stat"] <= GAN_GRAD_RTOL)
+
+
+def gan_faults(torch) -> dict:
+    """Faults that leave the step's metrics as they are and change only
+    its gradients, each a context manager: the control runs of
+    gan_fp32_vs_cpu, which its check must catch."""
+    from unittest import mock
+
+    from attngan_torch.ops import cuda_damsm
+    from attngan_torch.train.gan_trainer import GanTrainer
+
+    coupling = GanTrainer._damsm_coupling
+    bwd = cuda_damsm.damsm_similarity_bwd
+
+    def detached(self, state, fake256, *args):
+        return coupling(self, state, fake256.detach(), *args)
+
+    def doubled(*args):
+        return tuple(2 * g for g in bwd(*args))
+
+    return {
+        # the DAMSM coupling's gradient does not reach the generator
+        "coupling_gradient_dropped": lambda: mock.patch.object(
+            GanTrainer, "_damsm_coupling", detached),
+        # K5 returns twice the words loss's gradient
+        "k5_gradient_doubled": lambda: mock.patch.object(
+            cuda_damsm, "damsm_similarity_bwd", doubled),
+    }
+
+
 def gan_fp32_vs_cpu(torch, rng) -> None:
     """One fp32 GAN step at batch GAN_CHECK_BATCH (full width, the kernels
     on: K1, K4 and K5 in fp32) on the card and on the CPU from the same
     seeded weights, noise and eps. Held: the metrics within STEP_RTOL
-    relative; the parameters after the step, and the generator's BN
-    statistics, with phase 5's rule (STEP_RTOL relative plus
-    STEP_GRAD_ATOL_SHARE of the largest entry); in norm within
-    GAN_GRAD_RTOL, the gradients (each discriminator tensor's, the
-    generator's as a whole) and the discriminators' BN statistics. The step
-    is Adam's first (count 1), which moves a weight by lr g / (|g| + eps):
-    about +-lr whatever the gradient's size, so a parameter may differ by
-    the two updates' difference more (the elements where it exceeds
-    lr / 1000 are counted and printed: chiefly gradients on two sides of 0,
-    and at batch 2 gen1.fc's, ~1e-8 where the InitialStage's BatchNorm1d
-    maps each feature of its 2 samples to about +-1). The discriminators'
-    statistics take their last move in the G-side pass, through parameters
-    that differ so.
-    """
+    relative; the generator's BN statistics (moved once, by the forward,
+    before any update) with phase 5's rule, STEP_RTOL relative plus
+    STEP_GRAD_ATOL_SHARE of the largest entry; in norm within GAN_GRAD_RTOL,
+    the gradients (each discriminator tensor's, the generator's as a whole)
+    and each discriminator's BN statistics (last moved by the G-side pass,
+    through the updated parameters).
+
+    The gradients are held in norm only: elementwise they do not reproduce
+    across devices in this step (leaky ReLU and ReLU kinks flip where an
+    input lies within rounding of 0). The updated parameters are not held
+    apart: from the same weights, Adam's first step moves each by
+    lr g / (|g| + eps), a function of its gradient alone, so they would
+    hold the same gradients again, elementwise, through the sign of g.
+
+    Then each of ``gan_faults`` runs the card's step once more; the check
+    must fail on it (each reading is printed beside the limits)."""
     import numpy as np
 
     from attngan_torch.core.config import GanConfig
-    from attngan_torch.train.gan_trainer import GanTrainer
 
     cfg = GanConfig(compute_dtype="")
     batch = {k: v.cpu() for k, v in
@@ -778,76 +866,36 @@ def gan_fp32_vs_cpu(torch, rng) -> None:
         (GAN_CHECK_BATCH, cfg.z_dim), dtype=np.float32))
     eps = torch.from_numpy(rng.standard_normal(
         (GAN_CHECK_BATCH, cfg.cond_dim), dtype=np.float32))
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        trainer = GanTrainer(cfg, VOCAB, device=dev)
-        state = trainer.init_state(seed=7)
-        state, m = trainer.train_step(state, batch, noise=noise, eps=eps)
-        modules = {"gen": state.gen, **{f"disc{r}": d
-                                        for r, d in state.discs.items()}}
-        grads = {f"{w}.{k}": p.grad.cpu() for w, mod in modules.items()
-                 for k, p in mod.named_parameters()}
-        runs[dev] = ({k: float(v) for k, v in m.items()}, grads,
-                     {k: v.cpu() for k, v in gan_tensors(state).items()})
-    (m_gpu, g_gpu, t_gpu), (m_cpu, g_cpu, t_cpu) = runs["cuda"], runs["cpu"]
-    metric_err = max(abs(m_gpu[k] - v) / abs(v) for k, v in m_cpu.items())
-    def rel_norm(keys):
-        return float(sum((g_gpu[k] - g_cpu[k]).square().sum() for k in keys)
-                     .sqrt() / sum(g_cpu[k].square().sum() for k in keys)
-                     .sqrt())
-
-    grad_err = {"gen": rel_norm([k for k in g_cpu if k.startswith("gen.")])}
-    for res in cfg.resolutions:
-        grad_err[f"disc{res}"] = max(rel_norm([k]) for k in g_cpu
-                                     if k.startswith(f"disc{res}."))
-    # Adam's first step moves a weight by lr g / (|g| + eps): where the two
-    # gradients of an element differ (held above in norm), its parameters
-    # may differ by the two updates' difference
-    def update(g):
-        return cfg.gen_lr * g / (g.abs() + 1e-8)
-
-    moved, param_err, stat_err = 0, 0.0, 0.0
-    for k, b in t_cpu.items():
-        a, scale = t_gpu[k], float(b.abs().max()) or 1.0
-        if k.startswith("disc") and k not in g_cpu:
-            # a discriminator's BN statistic: last moved by the G-side pass
-            # through parameters that differ by the updates' difference
-            stat_err = max(stat_err, float((a - b).norm() / b.norm()))
-            continue
-        allow = 0.0
-        if k in g_cpu:                # a parameter
-            allow = (update(g_gpu[k]) - update(g_cpu[k])).abs()
-            moved += int((allow > STEP_RTOL * cfg.gen_lr).sum())
-        excess = float(((a - b).abs() - allow - STEP_RTOL * b.abs()).max())
-        param_err = max(param_err, excess / scale)
-        fail_unless(excess <= STEP_GRAD_ATOL_SHARE * scale,
-                    f"fp32 GAN step: {k} differs by {excess} beyond rtol "
-                    f"{STEP_RTOL} and the two Adam updates' difference")
+    cpu = gan_fp32_step(torch, cfg, batch, noise, eps, "cpu")
+    gpu = gan_fp32_step(torch, cfg, batch, noise, eps, "cuda")
+    err = gan_step_errors(cfg, gpu, cpu)
+    faults = {name: gan_step_errors(cfg, gan_fp32_step(
+        torch, cfg, batch, noise, eps, "cuda", fault), cpu)
+        for name, fault in gan_faults(torch).items()}
     print(json.dumps({"phase": "gan_fp32_vs_cpu", "batch": GAN_CHECK_BATCH,
-                      "metrics_gpu": m_gpu, "metrics_cpu": m_cpu,
-                      "max_rel_metric_err": metric_err,
-                      "grad_rel_norm_err": grad_err,
-                      "max_param_excess_over_max": param_err,
-                      "disc_stat_rel_norm_err": stat_err,
-                      "elements_whose_updates_differ": moved}), flush=True)
-    fail_unless(metric_err <= STEP_RTOL,
-                f"fp32 GAN step: metrics differ by {metric_err} relative")
-    fail_unless(max(grad_err.values()) <= GAN_GRAD_RTOL,
-                f"fp32 GAN step: gradients differ by {grad_err} of their "
-                f"norms")
-    fail_unless(stat_err <= GAN_GRAD_RTOL,
-                f"fp32 GAN step: discriminator statistics differ by "
-                f"{stat_err} of their norms")
+                      "metrics_gpu": gpu[0], "metrics_cpu": cpu[0],
+                      "errors": err, "faulty_steps": faults,
+                      "limits": {"metric": STEP_RTOL,
+                                 "grad": GAN_GRAD_RTOL,
+                                 "gen_stat": STEP_GRAD_ATOL_SHARE,
+                                 "disc_stat": GAN_GRAD_RTOL}}), flush=True)
+    fail_unless(gan_step_agrees(err),
+                f"fp32 GAN step: the card's differs from the CPU's: {err}")
+    for name, fault_err in faults.items():
+        fail_unless(not gan_step_agrees(fault_err),
+                    f"fp32 GAN step: the check does not catch {name}: "
+                    f"{fault_err}")
 
 
 def gan_throughput(torch, trainer, state, batch, card_name: str) -> None:
-    """GAN steps/s and images/s at batch 16 over 6 windows of 4 steps, with
-    the kernels and with the plain paths (fused_attention and
-    fused_similarity off: K1 and the words loss in PyTorch ops), the two
+    """GAN steps/s and images/s at the configuration's batch over 6 windows
+    of 4 steps, with the kernels and with the plain paths (fused_attention
+    and fused_similarity off: K1 and the words loss in PyTorch ops), the two
     taking their windows in turns, each on its own state from one seed."""
     from attngan_torch.core.config import replace
     from attngan_torch.train.gan_trainer import GanTrainer
 
+    b = trainer.cfg.batch_size
     plain = GanTrainer(replace(trainer.cfg, fused_attention=False,
                                fused_similarity=False), VOCAB)
     paths = (("kernels", trainer, state),
@@ -866,8 +914,8 @@ def gan_throughput(torch, trainer, state, batch, card_name: str) -> None:
     for label, windows in rates.items():
         median = statistics.median(windows)
         print(json.dumps({
-            "phase": "gan_throughput", "path": label, "batch": GAN_BATCH,
-            "steps_per_s": median, "images_per_s": median * GAN_BATCH,
+            "phase": "gan_throughput", "path": label, "batch": b,
+            "steps_per_s": median, "images_per_s": median * b,
             "windows": windows,
             "spread_pct": 100 * (max(windows) - min(windows)) / median,
             "card": card_name}), flush=True)
@@ -1145,7 +1193,8 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         stats = profile_calls(torch, lambda: trainer.train_step(state, batch))
         print(json.dumps({"phase": "profile", "path": "gan_step",
-                          "batch": GAN_BATCH, **stats, "card": card_name}),
+                          "batch": trainer.cfg.batch_size, **stats,
+                          "card": card_name}),
               flush=True)
     lap("gan")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)

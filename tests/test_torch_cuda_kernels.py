@@ -449,24 +449,30 @@ def test_word_attention_gradient_at_the_gan_shapes_in_bf16(cuda, hw):
     """K1 under autograd at the train-mode generator's shapes (batch 16,
     gf = 32, 5 words, bf16): the kernel's forward, the plain version's
     recompute in the backward, with d_attn zero (the maps do not enter the
-    loss); the gradient equals the plain path's."""
+    loss); the outputs and the gradient equal the plain path's."""
     b, c, l = 16, 32, 5
     images = _randn(cuda, b, hw, hw, c).to(torch.bfloat16)
     words = _randn(cuda, b, l, c).to(torch.bfloat16)
     lengths = torch.randint(1, l + 1, (b,), generator=cuda, device="cuda")
     mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).int()
     d_ctx = _randn(cuda, b, hw, hw, c).to(torch.bfloat16)
-    grads = []
+    outs, grads = [], []
     for fn in (word_attention_cuda, word_attention):
         im = images.clone().requires_grad_()
         wd = words.clone().requires_grad_()
         before = word_attention_cuda.launches
-        ctx, _ = fn(im, wd, mask)
+        ctx, attn = fn(im, wd, mask)
         (ctx.float() * d_ctx.float()).sum().backward()
         torch.cuda.synchronize()
         assert word_attention_cuda.launches == before + (
             fn is word_attention_cuda)          # the backward launches none
+        outs.append((ctx.detach(), attn.detach()))
         grads.append((im.grad, wd.grad))
+    (ctx, attn), (want_ctx, want_attn) = outs
+    assert ctx.dtype == torch.bfloat16 and attn.dtype == torch.float32
+    torch.testing.assert_close(ctx.float(), want_ctx.float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(attn, want_attn, atol=1e-5, rtol=0.0)
     for a, b_ in zip(*grads):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b_.float(),
