@@ -1,15 +1,24 @@
 #!/usr/bin/env python
 """Text -> image inference on the GPU: ``python -m attngan_torch.cli.infer``.
 
-Port of attngan_tpu/cli/infer.py's serving surface. Loads a port checkpoint
-(``save_infer_state``'s .pt) or, without one, random weights from --seed,
-then either measures throughput (--benchmark) or writes one PNG per
---image-names entry, captioned from the captions JSON.
+Port of attngan_tpu/cli/infer.py's serving surface. Restores the text
+encoder and generator of a GAN checkpoint written by
+``python -m attngan_torch.cli.train`` (its directory, for the newest step,
+or one ``step_*`` dir; the model-shape flags default to the values its
+``config.json`` recorded, and an explicit flag that contradicts them is an
+error), or a ``save_infer_state`` .pt, or, without one, random weights
+from --seed. Then it measures throughput (--benchmark) or writes PNGs for
+the --image-names entries, captioned from the captions JSON: the final
+stage, or every stage (--all-stages) and the word-attention strips
+(--save-attention), optionally after swapping cluster tokens between the
+first two captions (--swap). The JAX CLI's --int8, --export* and
+--mesh-shape are later slices of the port: argparse refuses them.
 
 Examples:
   python -m attngan_torch.cli.infer --benchmark --batch-size 64
   python -m attngan_torch.cli.infer --captions-path data/caps.json \
-      --checkpoint infer_state.pt --image-names imgA imgB --out out/
+      --checkpoint checkpoints/gan --image-names imgA imgB --swap 1 \
+      --all-stages --save-attention --out out/
 """
 
 from __future__ import annotations
@@ -23,17 +32,30 @@ import time
 # bench.py's vocabulary size, for a benchmark with neither a checkpoint nor
 # a captions file
 BENCH_VOCAB = 1000
+# the benchmark's serving calls: one warm-up, then WINDOWS windows of ITERS
+BENCH_WINDOWS, BENCH_ITERS = 5, 4
 SHAPE_FLAGS = ("num_stages", "gf_dim", "emb_dim", "seq_len")
 
 
 def parse_args(argv=None):
+    from attngan_torch.core.config import Config
+
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--captions-path", default="data/captionsAndClassIDs.json")
+    p.add_argument("--captions-path", default=Config.CAPTIONS_JSON)
     p.add_argument("--checkpoint", default="",
-                   help="a .pt written by attngan_torch.infer.sampler."
-                        "save_infer_state; none = random weights")
+                   help="a cli.train checkpoint dir (its newest step), one "
+                        "step_* dir, or a .pt written by attngan_torch."
+                        "infer.sampler.save_infer_state; none = random "
+                        "weights")
     p.add_argument("--image-names", nargs="*", default=[])
+    p.add_argument("--swap", type=int, default=0,
+                   help="swap N cluster tokens between the first two captions")
+    p.add_argument("--swap-reverse", action="store_true")
+    p.add_argument("--all-stages", action="store_true",
+                   help="also save the 64/128px intermediate stages")
+    p.add_argument("--save-attention", action="store_true",
+                   help="save per-word attention strips next to each image")
     p.add_argument("--out", default="generated_images")
     # model shapes: default to the checkpoint's, else GanConfig's
     p.add_argument("--num-stages", type=int, default=None, choices=[1, 2, 3])
@@ -68,27 +90,74 @@ def _config(args):
                      **shapes), shapes
 
 
+def _refuse_contradictions(shapes: dict, recorded: dict, where: str) -> None:
+    """An explicit shape flag must agree with what the checkpoint recorded."""
+    for name, value in shapes.items():
+        if name in recorded and recorded[name] != value:
+            raise SystemExit(
+                f"--{name.replace('_', '-')} {value} contradicts the "
+                f"checkpoint's recorded {name}={recorded[name]} ({where}); "
+                f"drop the flag to use the recorded value, or point "
+                f"--checkpoint at a run trained with {name}={value}")
+
+
+def _training_checkpoint(path: str):
+    """(step dir, dir of its sidecars) of a cli.train checkpoint path: the
+    checkpoint dir's newest step, or one step_* dir."""
+    from attngan_torch.train.checkpoint import latest_checkpoint
+
+    ckpt = latest_checkpoint(path)
+    if ckpt is not None:
+        return ckpt, path
+    path = os.path.normpath(path)
+    if os.path.isdir(path) and os.path.basename(path).startswith("step_"):
+        return path, os.path.dirname(path)
+    raise SystemExit(f"--checkpoint {path}: neither a .pt file nor a "
+                     f"directory of step_* checkpoints")
+
+
 def _load_state(args, cfg, shapes, handler):
     import torch
 
+    from attngan_torch.core.config import SHAPE_FIELDS, replace
     from attngan_torch.infer.sampler import InferState, load_infer_state
+    from attngan_torch.train.checkpoint import (
+        load_config_sidecar,
+        restore_inference_state,
+    )
 
-    if args.checkpoint:
-        state = load_infer_state(args.checkpoint, cfg, device="cpu")
-        for name, value in shapes.items():
-            if getattr(state.cfg, name) != value:
-                raise SystemExit(
-                    f"--{name.replace('_', '-')} {value} contradicts the "
-                    f"checkpoint's {name}={getattr(state.cfg, name)}")
-        print(f"restored {args.checkpoint}")
-        return state
-    print("WARNING: no checkpoint given; using random weights")
-    torch.manual_seed(args.seed)
-    vocab = handler.vocab_size if handler is not None else BENCH_VOCAB
-    return InferState(cfg, vocab)
+    if not args.checkpoint:
+        print("WARNING: no checkpoint given; using random weights")
+        torch.manual_seed(args.seed)
+        vocab = handler.vocab_size if handler is not None else BENCH_VOCAB
+        return InferState(cfg, vocab)
+    source = args.checkpoint
+    if source.endswith(".pt"):
+        state = load_infer_state(source, cfg, device="cpu")
+        _refuse_contradictions(
+            shapes, {k: getattr(state.cfg, k) for k in SHAPE_FIELDS}, source)
+    else:
+        ckpt, directory = _training_checkpoint(args.checkpoint)
+        sidecar = load_config_sidecar(directory) or {}
+        recorded = {k: sidecar[k] for k in SHAPE_FIELDS if k in sidecar}
+        if recorded:
+            print(f"using the model config recorded at training time: "
+                  f"{recorded}")
+        _refuse_contradictions(shapes, recorded,
+                               os.path.join(directory, "config.json"))
+        state = restore_inference_state(ckpt, replace(cfg, **recorded))
+        source = ckpt
+    if args.image_names and handler.vocab_size != state.vocab_size:
+        raise SystemExit(
+            f"{args.captions_path} gives a vocabulary of "
+            f"{handler.vocab_size} words; the checkpoint was trained with "
+            f"{state.vocab_size}: pass the captions JSON of its training run")
+    print(f"restored {source}")
+    return state
 
 
-def _benchmark(sampler, args, windows: int = 5, iters: int = 4) -> dict:
+def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
+               iters: int = BENCH_ITERS) -> dict:
     import numpy as np
     import torch
 
@@ -125,31 +194,73 @@ def _benchmark(sampler, args, windows: int = 5, iters: int = 4) -> dict:
             "fused_upsample": cfg.fused_upsample}
 
 
+def _host_images(images) -> list:
+    """Tensors -> host fp32 arrays; non-finite values are an error."""
+    import numpy as np
+
+    arrays = [np.asarray(x.float().cpu()) for x in images]
+    if not all(np.isfinite(a).all() for a in arrays):
+        raise RuntimeError("non-finite values in the generated images")
+    return arrays
+
+
+def _write_images(sampler, handler, args) -> list:
+    """The --image-names PNGs; returns their paths."""
+    import torch
+
+    from attngan_torch.utils.imaging import save_attention_maps, save_image
+
+    captions = handler.get_captions(args.image_names)
+    if args.swap and len(captions) >= 2:
+        captions[:2] = handler.swap_captions(captions[:2], num=args.swap,
+                                             reverse=args.swap_reverse)
+    tokens, lengths = handler.preprocess(captions,
+                                         max_seqlen=sampler.cfg.seq_len)
+    gen = torch.Generator(sampler.device).manual_seed(args.seed)
+    stages, attns = sampler.generate_stages(tokens, lengths, generator=gen)
+    stages, attns = _host_images(stages), _host_images(attns)
+    os.makedirs(args.out, exist_ok=True)
+    written = []
+    for i, name in enumerate(args.image_names):
+        base = os.path.basename(name)
+        if not (args.all_stages or args.save_attention):
+            written.append((os.path.join(args.out, f"{base}.png"),
+                            save_image, stages[-1][i]))
+            continue
+        for imgs in (stages if args.all_stages else stages[-1:]):
+            res = imgs.shape[1]
+            written.append((os.path.join(args.out, f"{base}_{res}px.png"),
+                            save_image, imgs[i]))
+        for attn in (attns if args.save_attention else []):
+            res = attn.shape[-1]
+            written.append((os.path.join(args.out, f"{base}_attn{res}.png"),
+                            save_attention_maps, attn[i]))
+    for path, save, array in written:
+        save(array, path)
+        print(f"wrote {path}")
+    return [path for path, _, _ in written]
+
+
 def main(argv=None):
+    """Returns the benchmark's result, or the paths of the PNGs written."""
     args = parse_args(argv)
     if not args.benchmark and not args.image_names:
         raise SystemExit("pass --image-names (or --benchmark)")
     from attngan_torch.data.captions import CaptionHandler
     from attngan_torch.infer.sampler import Sampler
-    from attngan_torch.utils.imaging import save_image
 
     handler = None
     if args.image_names or os.path.exists(args.captions_path):
         handler = CaptionHandler(args.captions_path)
     cfg, shapes = _config(args)
     state = _load_state(args, cfg, shapes, handler)
-    sampler = Sampler(state, caption_handler=handler, device=args.device)
+    sampler = Sampler(state, device=args.device)
 
     if args.benchmark:
-        print(json.dumps(_benchmark(sampler, args)))
-        return
-    images = sampler.generate_from_captions(
-        handler.get_captions(args.image_names), seed=args.seed)
-    os.makedirs(args.out, exist_ok=True)
-    for name, img in zip(args.image_names, images):
-        path = os.path.join(args.out, f"{os.path.basename(name)}.png")
-        save_image(img, path)
-        print(f"wrote {path}")
+        result = _benchmark(sampler, args)
+        print(json.dumps(result))
+        return result
+    return _write_images(sampler, handler, args)
 
 
 if __name__ == "__main__":

@@ -1,19 +1,21 @@
-"""Configuration of serving, DAMSM pretraining and the GAN step.
+"""Configuration of serving, both training phases and the entry points.
 
-The port keeps its own copies of the JAX package's ``GanConfig`` and
-``DamsmConfig`` (attngan_tpu/core/config.py) instead of importing them: the
-port imports nothing of that package. Field names and model-shape defaults
-are the same, so a checkpoint's recorded config reads the same in both.
-Only the fields the port uses are copied: ``DamsmConfig``'s feature cache,
-int8 trunk, train-mode trunk BN and superbatch, and ``GanConfig``'s epochs,
-each come with their own slice. ``GanConfig``'s ``remat_coupling`` and
-``reuse_gen_forward`` have no counterpart: they choose how XLA schedules
-the same step, and autograd keeps the one generator forward's graph.
+The port keeps its own copies of the JAX package's ``GanConfig``,
+``DamsmConfig``, ``RunConfig`` and ``Config`` (attngan_tpu/core/config.py)
+instead of importing them: the port imports nothing of that package. Field
+names and model-shape defaults are the same, so a checkpoint's recorded
+config reads the same in both. Only the fields the port uses are copied:
+``DamsmConfig``'s feature cache, int8 trunk, train-mode trunk BN and
+superbatch, and ``RunConfig``'s ``mesh_shape``, each come with their own
+slice. ``GanConfig``'s ``remat_coupling`` and ``reuse_gen_forward`` have no
+counterpart: they choose how XLA schedules the same step, and autograd
+keeps the one generator forward's graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -60,6 +62,7 @@ class GanConfig:
     gen_lr: float = 2e-4
     disc_lr: float = 2e-4
     betas: Tuple[float, float] = (0.5, 0.999)
+    epochs: int = 150
     # DAMSM temperatures of the G-step's DAMSM term
     gamma1: float = 4.0
     gamma2: float = 5.0
@@ -95,6 +98,30 @@ SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
                 "seq_len", "num_stages")
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Process-level knobs shared by the training loops
+    (attngan_tpu/core/config.py::RunConfig without ``mesh_shape``)."""
+
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    image_dir: str = "generated_images"
+    log_every: int = 50
+    checkpoint_every_epochs: int = 1
+    profile: bool = False  # trace steps 2-7 with torch.profiler
+
+
 def replace(cfg, **kw):
     """Functional update helper for frozen configs."""
     return dataclasses.replace(cfg, **kw)
+
+
+class Config:
+    """Default filesystem layout of the entry points, each path overridable
+    from the environment (attngan_tpu/core/config.py::Config)."""
+
+    DATA_ROOT = os.environ.get("ATTNGAN_DATA_ROOT", "data/images")
+    CAPTIONS_JSON = os.environ.get(
+        "ATTNGAN_CAPTIONS", "data/captionsAndClassIDs.json")
+    CHECKPOINT_DIR = os.environ.get("ATTNGAN_CKPT_DIR", "checkpoints")
+    IMAGE_DIR = os.environ.get("ATTNGAN_IMAGE_DIR", "generated_images")

@@ -1,12 +1,13 @@
 """Inference-time caption utilities.
 
-A copy of what serving needs of attngan_tpu/data/captions.py (the port
-imports nothing of the JAX package).
+A copy of attngan_tpu/data/captions.py (the port imports nothing of the
+JAX package).
 
 Reference: data/bedrooms.py:307-361 (CaptionHandler) — rebuilds the vocab
 from the saved captions JSON, fuzzy-matches image names to their captions
-(rapidfuzz ratio), and tokenizes captions into padded index/length arrays
-for the text encoder.
+(rapidfuzz ratio), swaps coarse/fine cluster tokens between two captions for
+controllability demos, and tokenizes captions into padded index/length
+arrays for the text encoder.
 """
 
 from __future__ import annotations
@@ -52,6 +53,21 @@ class CaptionHandler:
         if best is None:
             raise KeyError(f"no stored caption matches {imgname!r}")
         return self.img2caption[best]
+
+    def swap_captions(
+        self, captions: List[List[str]], num: int = 1, reverse: bool = False
+    ) -> List[List[str]]:
+        """Exchange the first (or last, reverse=True) ``num`` cluster tokens
+        between two captions (bedrooms.py:331-340)."""
+        if len(captions) != 2:
+            raise ValueError(f"swap_captions takes 2 captions; got "
+                             f"{len(captions)}")
+        c1, c2 = captions
+        n1, n2 = list(c1), list(c2)
+        for i in range(1, num + 1):
+            j = -i if reverse else (i - 1)
+            n1[j], n2[j] = c2[j], c1[j]
+        return [n1, n2]
 
     def preprocess(
         self, captions: List[List[str]], max_seqlen: int = 0

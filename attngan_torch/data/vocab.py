@@ -1,7 +1,8 @@
 """Vocabulary for the clustering-derived pseudo-captions.
 
-A copy of what serving needs of attngan_tpu/data/vocab.py (the port
-imports nothing of the JAX package).
+A copy of attngan_tpu/data/vocab.py (the port imports nothing of the JAX
+package) without its ``index2word`` and ``word2count``, which nothing
+reads.
 
 Reference: data/bedrooms.py:59-101 (Vocab). Differences, both deliberate:
   * unknown words map to '[UNK]' only if present (reference behavior is a
@@ -26,18 +27,29 @@ class Vocab:
     def __init__(self):
         self.word2index: Dict[str, int] = {}
         self.n_words = 0
+        self.vocab_built = False
 
     def _add_word(self, word: str) -> None:
         if word not in self.word2index:
             self.word2index[word] = self.n_words
             self.n_words += 1
 
+    def add_caption(self, caption: List[str]) -> None:
+        for word in caption:
+            self._add_word(word)
+
+    def build(self, captions: List[List[str]]) -> None:
+        self._add_word(UNK)
+        for caption in captions:
+            self.add_caption(caption)
+        self.vocab_built = True
+
     def build_from_mapping(self, mapping: dict) -> None:
         """mapping: {fpath: [caption tokens, class_id]} (bedrooms.py:84-88)."""
         self._add_word(UNK)
         for _, (caption, _) in mapping.items():
-            for word in caption:
-                self._add_word(word)
+            self.add_caption(caption)
+        self.vocab_built = True
 
     def process(self, tokens: List[str]) -> List[int]:
         """Words -> indices, unknowns -> [UNK] (bedrooms.py:70-77)."""

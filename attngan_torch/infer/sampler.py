@@ -10,13 +10,11 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
 from attngan_torch.core.config import SHAPE_FIELDS, GanConfig, replace
 from attngan_torch.core.runtime import resolve_device
-from attngan_torch.data.captions import CaptionHandler
 from attngan_torch.data.dataset import word_mask
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
@@ -61,12 +59,10 @@ class Sampler:
     """Serves an InferState on one device (the GPU unless asked otherwise)."""
 
     def __init__(self, state: InferState,
-                 caption_handler: Optional[CaptionHandler] = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.state = state.to(self.device).eval()
         self.cfg = state.cfg
-        self.caption_handler = caption_handler
 
     @torch.no_grad()
     def generate_stages(
@@ -92,15 +88,3 @@ class Sampler:
                              generator=None) -> torch.Tensor:
         """(B, 256, 256, 3) in [0, 1] (the last stage)."""
         return self.generate_stages(tokens, lengths, noise, eps, generator)[0][-1]
-
-    def generate_from_captions(self, captions: List[List[str]],
-                               seed: int = 0) -> np.ndarray:
-        """Tokenize + embed + generate; (N, R, R, 3) in [0, 1] on the host."""
-        if self.caption_handler is None:
-            raise ValueError("generate_from_captions needs a CaptionHandler")
-        tokens, lengths = self.caption_handler.preprocess(
-            captions, max_seqlen=self.cfg.seq_len)
-        gen = torch.Generator(self.device).manual_seed(seed)
-        imgs = self.generate_from_tokens(tokens, lengths, generator=gen)
-        return imgs.cpu().numpy()
-

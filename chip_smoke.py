@@ -58,7 +58,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    run, and two faulty steps (gradient faults only) that this check must
    catch; GAN steps/s with the kernels and with the plain paths, in turns;
    (with ``--profile``: 3 GAN steps under torch.profiler;)
-7. one ``{"kernels": [...]}`` line (launches summed over every path's
+7. whether Pillow, matplotlib and scikit-learn can be imported (a fact
+   to record: the path below needs none of them), then the training
+   surface at full width through the CLIs' ``main(argv)``, chained through
+   their own checkpoints under one temporary directory: ``cli.pretrain``
+   (128 synthetic images, batch 64, 2 epochs: 4 steps), ``cli.train`` from
+   its checkpoint (64 images, batch 16, 2 epochs: 8 steps, a sample grid
+   each epoch), its ``--resume`` to 3 epochs (4 steps more; every restored
+   state equal to its files bit for bit), and ``cli.infer`` from the GAN
+   checkpoint (2 captions with ``--swap 1 --all-stages --save-attention``:
+   10 PNGs, each read back to its shape; ``--benchmark`` at batch 64).
+   Each call's launch counts must be exact: K4 once and K5 twice a
+   pretrain or GAN step, K1 twice a GAN step, sample grid or serving
+   call, K2 twice a grid or serving call, K3 and K6 never. One line per
+   call: steps, seconds, steps/s through the loop with and without its
+   checkpoint saves and grids (beside phase 6's bare-step steps/s), each
+   save's seconds and MB on disk;
+8. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -68,7 +84,9 @@ Without a GPU, or without the repository around it, it exits non-zero too.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import math
 import os
 import re
 import statistics
@@ -887,11 +905,12 @@ def gan_fp32_vs_cpu(torch, rng) -> None:
                     f"{fault_err}")
 
 
-def gan_throughput(torch, trainer, state, batch, card_name: str) -> None:
+def gan_throughput(torch, trainer, state, batch, card_name: str) -> float:
     """GAN steps/s and images/s at the configuration's batch over 6 windows
     of 4 steps, with the kernels and with the plain paths (fused_attention
     and fused_similarity off: K1 and the words loss in PyTorch ops), the two
-    taking their windows in turns, each on its own state from one seed."""
+    taking their windows in turns, each on its own state from one seed.
+    Returns the kernel path's median steps/s."""
     from attngan_torch.core.config import replace
     from attngan_torch.train.gan_trainer import GanTrainer
 
@@ -919,6 +938,220 @@ def gan_throughput(torch, trainer, state, batch, card_name: str) -> None:
             "windows": windows,
             "spread_pct": 100 * (max(windows) - min(windows)) / median,
             "card": card_name}), flush=True)
+    return statistics.median(rates["kernels"])
+
+
+class LoopProbe:
+    """Phase 7's instruments around the loops, installed while it runs:
+    the time and bytes of every checkpoint save and the time of every
+    sample grid (each after a synchronize, so that the steps' queued work
+    is not theirs), the loop's StepTimer, and a bit-for-bit comparison of
+    every restored state with the files it came from."""
+
+    def __init__(self, torch):
+        from attngan_torch.train import checkpoint, loops
+
+        self.torch, self.checkpoint, self.loops = torch, checkpoint, loops
+        self.saves, self.grids, self.restored, self.timers = [], [], [], []
+        self.originals = {}
+
+    def __enter__(self):
+        loops, checkpoint, probe = self.loops, self.checkpoint, self
+
+        def save(directory, state, step, *args, **kw):
+            probe.torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = probe.originals["save_checkpoint"](directory, state, step,
+                                                      *args, **kw)
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            probe.saves.append((time.perf_counter() - t, size))
+            return path
+
+        def grid(*args, **kw):
+            probe.torch.cuda.synchronize()
+            t = time.perf_counter()
+            probe.originals["_sample_grid"](*args, **kw)
+            probe.grids.append(time.perf_counter() - t)
+
+        def restore(path, state):
+            state = probe.originals["restore_checkpoint"](path, state)
+            parts = checkpoint.state_parts(state)
+            diff = checkpoint.diff_parts(parts, {
+                name: checkpoint.load_part(path, name) for name in parts})
+            fail_unless(not diff, f"restored state differs from {path} at "
+                        f"{diff[:5]}")
+            probe.restored.append(path)
+            return state
+
+        class Timer(loops.StepTimer):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                probe.timers.append(self)
+
+        self.originals = {"save_checkpoint": loops.save_checkpoint,
+                          "_sample_grid": loops._sample_grid,
+                          "restore_checkpoint": loops.restore_checkpoint,
+                          "StepTimer": loops.StepTimer}
+        loops.save_checkpoint, loops._sample_grid = save, grid
+        loops.restore_checkpoint = checkpoint.restore_checkpoint = restore
+        loops.StepTimer = Timer
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.originals.items():
+            setattr(self.loops, name, fn)
+        self.checkpoint.restore_checkpoint = \
+            self.originals["restore_checkpoint"]
+
+    def run(self, counters, fn):
+        """(fn's result, {kernel: launches}, seconds, the loop's line)."""
+        torch = self.torch
+        for c in counters.values():
+            c.launches = 0
+        n_saves, n_grids, n_timers = (len(self.saves), len(self.grids),
+                                      len(self.timers))
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {name: c.launches for name, c in counters.items()}
+        saves = self.saves[n_saves:]
+        line = {"seconds": seconds, "launches": counts,
+                "checkpoint_s": [s for s, _ in saves],
+                "checkpoint_mb": [b / 2 ** 20 for _, b in saves],
+                "grid_s": self.grids[n_grids:]}
+        timers = self.timers[n_timers:]
+        if timers:
+            # steps after the first (the StepTimer's warm-up) over the time
+            # from its end to the loop's end: with the per-epoch saves and
+            # grids, and without them
+            timer = timers[-1]
+            loop_s = time.perf_counter() - timer.start
+            line.update(counted_steps=timer.count, loop_s=loop_s,
+                        steps_per_s=timer.count / loop_s,
+                        steps_per_s_without_saves=timer.count / (
+                            loop_s - sum(line["checkpoint_s"])
+                            - sum(line["grid_s"])))
+        return out, counts, line
+
+
+def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
+    """Phase 7: the CLIs' main(argv) in-process, chained through their own
+    checkpoints under one temporary directory, at full width (DamsmConfig
+    and GanConfig defaults; Inception-v3 trunk in bf16, seeded random
+    weights): pretrain on 128 synthetic images at batch 64 for 2 epochs
+    (4 steps), GAN training on 64 at batch 16 for 2 epochs (8 steps, a
+    sample grid each epoch) from the pretrain's checkpoint, its resume to
+    3 epochs (4 more steps; the restored state must equal the saved one
+    bit for bit), then serving from the GAN checkpoint: 2 captions through
+    --swap 1 --all-stages --save-attention (10 PNGs, each read back to its
+    shape) and --benchmark at batch 64. Each launch count must be exact.
+    Returns {kernel name: launches over the phase}."""
+    from attngan_torch.cli import infer, pretrain, train
+    from attngan_torch.utils.imaging import read_png
+
+    counters = kernel_counters()
+    total = {}
+
+    def expect(step: str, counts: dict, want: dict) -> None:
+        full = {name: want.get(name, 0) for name in counters}
+        fail_unless(counts == full, f"loops {step}: launches {counts}, "
+                    f"expected {full}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    with tempfile.TemporaryDirectory() as d, LoopProbe(torch) as probe:
+        common = ["--captions-path", f"{d}/caps.json",
+                  "--checkpoint-dir", f"{d}/ckpt", "--image-dir", f"{d}/img"]
+        tc_names = ("damsm_similarity", "damsm_similarity_bwd_square")
+        tc_before = [counters[n].tc_launches for n in tc_names]
+        (_, state, history), counts, line = probe.run(
+            counters, lambda: pretrain.main([
+                "--synthetic", "128", "--batch-size", "64", "--epochs", "2",
+                *common]))
+        steps = state.step
+        fail_unless(steps == 4, f"pretrain ran {steps} steps, not 4")
+        fail_unless(all(map(math.isfinite, history)), f"loss {history}")
+        # the forward, and the backward's pass, on the tensor cores
+        fail_unless([counters[n].tc_launches - b for n, b in
+                     zip(tc_names, tc_before)] == [steps, steps],
+                    "pretrain: K4 or K5 off the tensor cores")
+        expect("pretrain", counts, {"damsm_similarity": steps,
+                                    "damsm_similarity_bwd_square": 2 * steps})
+        print(json.dumps({"phase": "loops", "step": "pretrain", "batch": 64,
+                          "steps": steps, "losses": history, **line,
+                          "card": card_name}), flush=True)
+
+        gan = ["--synthetic", "64", "--batch-size", "16",
+               "--damsm-checkpoint", f"{d}/ckpt/damsm", *common]
+        for label, argv, want_steps, grids in (
+                ("gan", ["--epochs", "2"], 8, 2),
+                ("gan_resume", ["--epochs", "3", "--resume"], 4, 1)):
+            n_restored = len(probe.restored)
+            (_, state, losses), counts, line = probe.run(
+                counters, lambda: train.main([*gan, *argv]))
+            steps = len(losses["g_total"])
+            fail_unless(steps == want_steps, f"{label}: {steps} steps")
+            fail_unless(all(math.isfinite(v) for h in losses.values()
+                            for v in h), f"{label}: non-finite losses")
+            # the DAMSM encoders' restore, and the resume's
+            fail_unless(len(probe.restored) == n_restored + 1
+                        + (label == "gan_resume"), f"{label}: restores")
+            expect(label, counts, {
+                "word_attention": 2 * steps + 2 * grids,
+                "upblock_fused_eval": 2 * grids,
+                "damsm_similarity": steps,
+                "damsm_similarity_bwd_square": 2 * steps})
+            print(json.dumps({"phase": "loops", "step": label, "batch": 16,
+                              "steps": steps, "state_step": state.step,
+                              "grids": grids, **line,
+                              "bare_step_steps_per_s": bare_gan_rate,
+                              "final_losses": {k: v[-1]
+                                               for k, v in losses.items()},
+                              "card": card_name}), flush=True)
+        fail_unless(state.step == 12, f"the resumed run ends at step "
+                    f"{state.step}, not 12")
+        with open(f"{d}/ckpt/gan/progress.json") as f:
+            fail_unless(json.load(f)["epoch"] == 3, "progress.json epoch")
+        fail_unless(os.path.exists(f"{d}/img/epoch_3-256x256.png"),
+                    "the resumed run's grid is not epoch 3's")
+        del state
+
+        serve = ["--checkpoint", f"{d}/ckpt/gan",
+                 "--captions-path", f"{d}/caps.json"]
+        paths, counts, line = probe.run(counters, lambda: infer.main([
+            *serve, "--image-names", "00000", "00001", "--swap", "1",
+            "--all-stages", "--save-attention", "--out", f"{d}/out"]))
+        expect("serve_images", counts, {"word_attention": 2,
+                                        "upblock_fused_eval": 2})
+        want = {"64px": (64, 64, 3), "128px": (128, 128, 3),
+                "256px": (256, 256, 3), "attn64": (64, SEQ_LEN * 64, 3),
+                "attn128": (128, SEQ_LEN * 128, 3)}
+        fail_unless(sorted(os.path.basename(p) for p in paths) == sorted(
+            f"{n}_{k}.png" for n in ("00000", "00001") for k in want),
+            f"serving wrote {paths}")
+        shapes = {}
+        for path in paths:
+            png = read_png(path)
+            kind = os.path.basename(path)[6:-4]
+            fail_unless(png.shape == want[kind], f"{path}: {png.shape}")
+            shapes[os.path.basename(path)] = [list(png.shape),
+                                              float(png.std())]
+        print(json.dumps({"phase": "loops", "step": "serve_images",
+                          "pngs": shapes, **line, "card": card_name}),
+              flush=True)
+
+        bench, counts, line = probe.run(counters, lambda: infer.main([
+            *serve, "--benchmark", "--batch-size", "64"]))
+        calls = 1 + infer.BENCH_WINDOWS * infer.BENCH_ITERS
+        expect("serve_benchmark", counts, {"word_attention": 2 * calls,
+                                           "upblock_fused_eval": 2 * calls})
+        print(json.dumps({"phase": "loops", "step": "serve_benchmark",
+                          "calls": calls, "img_per_s": bench["value"],
+                          "spread_pct": bench["spread_pct"], **line,
+                          "card": card_name}), flush=True)
+    return total
 
 
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
@@ -1189,17 +1422,23 @@ def main() -> int:
     del trainer, state, batch
     lap("pretrain")
     gan_launches, trainer, state, batch = gan(torch, card_name)
-    gan_throughput(torch, trainer, state, batch, card_name)
+    bare_gan_rate = gan_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
         stats = profile_calls(torch, lambda: trainer.train_step(state, batch))
         print(json.dumps({"phase": "profile", "path": "gan_step",
                           "batch": trainer.cfg.batch_size, **stats,
                           "card": card_name}),
               flush=True)
+    del trainer, state, batch
     lap("gan")
+    print(json.dumps({"phase": "host_packages", **{
+        name: importlib.util.find_spec(name) is not None
+        for name in ("PIL", "matplotlib", "sklearn")}}), flush=True)
+    loop_launches = loops_phase(torch, card_name, bare_gan_rate)
+    lap("loops")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
-    # launches summed over every path: serving, pretrain, GAN step
-    for counted in (damsm_launches, gan_launches):
+    # launches summed over every path: serving, pretrain, GAN step, loops
+    for counted in (damsm_launches, gan_launches, loop_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 

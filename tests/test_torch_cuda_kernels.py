@@ -25,6 +25,9 @@ multiple of 32 and texts of at most 8 words (``tc_launches``) and are held
 to the same tolerances (tests/test_torch_port_damsm_tf32.py states their
 error on the CPU).
 
+The data path and the loops: the image pyramid on the card against the
+CPU, and both loops at tiny dims with exact launch counts.
+
 The GAN step's shapes and modes: K4 and K5 at 16 x 16 with 5 words (the
 G-step's DAMSM coupling); K1's gradient under autograd at batch 16 in bf16
 (the train-mode generator), which must equal the plain path's; the trunk's
@@ -550,3 +553,79 @@ def test_trunk_avg_pool_gradient_in_channels_last(cuda):
         (y * w.to(dev)).sum().backward()
         grads.append(xi.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
+
+
+# ---- the data path and the loops
+
+def test_pyramid_on_the_card_matches_the_cpu(cuda):
+    """``preprocess_pyramid`` on the card against the CPU, flips mixed: 256
+    (scale, flip, clip) to 2^-22, the rounding of x / 255, which CUDA
+    computes as x times the reciprocal (1.2e-7 read on an H100), 128 and
+    64 (antialiased bilinear) to 1e-5; ``device_batch`` from the pinned
+    host batch leaves the lengths on the host."""
+    import numpy as np
+
+    from attngan_torch.data.dataset import (
+        Dataset,
+        pinned_batch,
+        preprocess_pyramid,
+    )
+
+    rng = np.random.default_rng(0)
+    host = {"pixels": rng.integers(0, 256, (4, 256, 256, 3), dtype=np.uint8),
+            "flip": np.array([True, False, False, True]),
+            "tokens": rng.integers(0, 9, (4, 5)).astype(np.int32),
+            "lengths": np.array([5, 2, 3, 4], np.int32),
+            "class_ids": np.arange(4, dtype=np.int32)}
+    pinned = pinned_batch(host, "cuda")
+    assert pinned["pixels"].is_pinned() and not pinned["lengths"].is_pinned()
+    got = Dataset.device_batch(pinned, "cuda")
+    assert got["lengths"].device.type == "cpu"
+    want = preprocess_pyramid(torch.from_numpy(host["pixels"]),
+                              torch.from_numpy(host["flip"]))
+    for res in (256, 128, 64):
+        assert got[f"img{res}"].device.type == "cuda"
+        torch.testing.assert_close(got[f"img{res}"].cpu(), want[res],
+                                   rtol=0.0,
+                                   atol=2.0 ** -22 if res == 256 else 1e-5)
+
+
+def test_tiny_loops_on_the_card_launch_exactly(cuda, tmp_path):
+    """Both loops at tiny dims in fp32 on the card (8 images, batch 4: 2
+    steps an epoch, 1 epoch; K2 takes gf = 4 in fp32 only): pretraining launches K4 once and K5 twice a step;
+    GAN training K1 twice a step and twice a sample grid, K2 twice a grid,
+    K4 once and K5 twice a step; K3 and K6 never."""
+    import numpy as np
+
+    from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig
+    from attngan_torch.data.synthetic import make_synthetic_dataset
+    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
+    from attngan_torch.train.loops import run_damsm_training, run_gan_training
+
+    counters = {"k1": word_attention_cuda, "k2": upblock_fused_eval_cuda,
+                "k3": upblock_fused_eval_packed_cuda, "k4": damsm_similarity,
+                "k5": damsm_similarity_bwd_square,
+                "k6": damsm_similarity_bwd_tiled}
+    run_cfg = RunConfig(checkpoint_dir=str(tmp_path / "ckpt"),
+                        image_dir=str(tmp_path / "img"))
+
+    def launches(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+    (_, state, history), got = launches(lambda: run_damsm_training(
+        DamsmConfig(emb_dim=32, batch_size=4, epochs=1, image_encoder="tiny",
+                    compute_dtype="float32"),
+        run_cfg, make_synthetic_dataset(8, res=64)))
+    assert state.step == 2 and all(map(np.isfinite, history))
+    assert got == {"k1": 0, "k2": 0, "k3": 0, "k4": 2, "k5": 4, "k6": 0}
+    (_, state, losses), got = launches(lambda: run_gan_training(
+        GanConfig(gf_dim=4, df_dim=4, emb_dim=16, seq_len=4, batch_size=4,
+                  epochs=1, image_encoder="tiny", compute_dtype="float32"),
+        run_cfg, make_synthetic_dataset(8, res=256)))
+    assert state.step == 2
+    assert all(np.isfinite(v).all() for v in losses.values())
+    assert got == {"k1": 2 * 2 + 2, "k2": 2, "k3": 0, "k4": 2, "k5": 4,
+                   "k6": 0}
