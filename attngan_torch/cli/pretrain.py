@@ -10,10 +10,11 @@ kernels. Checkpoints go to --checkpoint-dir/damsm, loss plots to
 which the GAN and serving phases rebuild the same vocabulary.
 
 --data-root decodes images with Pillow; the synthetic path needs neither
-Pillow nor matplotlib. The JAX CLI's clustering captioner (--cluster),
-streaming loader (--stream), feature cache, superbatch, int8 and
-train-mode trunk options, --pretrained-cnn and --mesh-shape are later
-slices of the port: argparse refuses them.
+Pillow nor matplotlib. The JAX CLI's clustering captioner (--cluster,
+--max-vocab-size and its other options), streaming loader (--stream),
+feature cache, superbatch, int8 and train-mode trunk options,
+--pretrained-cnn and --mesh-shape are later slices of the port: argparse
+refuses them.
 
 Examples:
   python -m attngan_torch.cli.pretrain --synthetic 128 --epochs 2
@@ -37,9 +38,6 @@ def parse_args(argv=None):
                    help="use N synthetic images instead of --data-root")
     p.add_argument("--max-images", type=int, default=99999)
     p.add_argument("--captions-path", default=Config.CAPTIONS_JSON)
-    p.add_argument("--max-vocab-size", type=int, default=1000,
-                   help="the clustering captioner's vocabulary bound (the "
-                        "captioner is a later slice of the port)")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--lr", type=float, default=0.002)

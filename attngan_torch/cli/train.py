@@ -78,12 +78,11 @@ def parse_args(argv=None):
 def load_damsm_encoders(path: str, cfg, vocab_size: int, seq_len: int,
                         device=None):
     """(rnn, cnn) of the DAMSM checkpoint at ``path``: a cli.pretrain
-    checkpoint dir (its newest step) or one ``step_*`` dir."""
+    checkpoint dir (its newest step) or one ``step_*`` dir. Reads only
+    ``rnn.pt`` and ``cnn.pt``: the Adam's moments and the step stay on
+    disk."""
     from attngan_torch.core.config import DamsmConfig
-    from attngan_torch.train.checkpoint import (
-        latest_checkpoint,
-        restore_checkpoint,
-    )
+    from attngan_torch.train.checkpoint import latest_checkpoint, load_part
     from attngan_torch.train.damsm_trainer import DamsmTrainer
 
     dcfg = DamsmConfig(emb_dim=cfg.emb_dim, image_encoder=cfg.image_encoder,
@@ -91,7 +90,9 @@ def load_damsm_encoders(path: str, cfg, vocab_size: int, seq_len: int,
     trainer = DamsmTrainer(dcfg, vocab_size=vocab_size, seq_len=seq_len,
                            device=device)
     ckpt = latest_checkpoint(path) or path
-    state = restore_checkpoint(ckpt, trainer.init_state(seed=0))
+    state = trainer.init_state(seed=0)
+    state.rnn.load_state_dict(load_part(ckpt, "rnn"))
+    state.cnn.load_state_dict(load_part(ckpt, "cnn"))
     return state.rnn, state.cnn
 
 

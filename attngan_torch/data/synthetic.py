@@ -3,10 +3,11 @@
 Port of the numpy-only part of attngan_tpu/data/synthetic.py (the port
 imports nothing of the JAX package): the same seed gives the same pixels
 and captions in both. The reference has no test assets (its data paths are
-hardcoded Windows directories, bedrooms.py:105). These generators produce
+hardcoded Windows directories, bedrooms.py:105). This generator produces
 structured fake datasets, so the whole pipeline (DAMSM -> GAN -> inference)
-runs end to end without LSUN. The photo-patch corpus, which needs Pillow
-and scikit-learn's sample images, waits for the clusterer's slice.
+runs end to end without LSUN. The scene corpus with known factors and the
+photo-patch corpus (Pillow and scikit-learn's sample images), both made
+to measure the clustering captioner, wait for the clusterer's slice.
 """
 
 from __future__ import annotations
@@ -16,65 +17,6 @@ from typing import List
 import numpy as np
 
 from attngan_torch.data.dataset import CANONICAL_RES, Dataset, Record
-
-
-def make_scene_dataset(
-    num_images: int = 512,
-    seed: int = 0,
-    res: int = CANONICAL_RES,
-):
-    """Procedural 'bedroom-like' scene corpus with KNOWN generative factors.
-
-    LSUN is not fetchable in this environment, so clustering-captioner
-    quality is measured on structured scenes instead of color blobs: each
-    image is a room with a wall/floor split, a wall color family, a bed
-    rectangle whose color/position varies, a window, and a lighting
-    gradient. The latent factors are returned per image so cluster quality
-    is measurable as agreement (adjusted Rand index) between discovered
-    clusters and ground truth — a measurement the reference never had
-    (its clusterer, bedrooms.py:241-304, was only ever eyeballed).
-
-    Returns (Dataset, factors) where factors is a dict of int arrays:
-    'wall' (6 families), 'bed' (5 colors), 'layout' (3 horizon bands).
-    """
-    rng = np.random.default_rng(seed)
-    wall_palette = np.array([
-        [188, 170, 150], [210, 200, 190], [150, 160, 180],
-        [170, 185, 160], [200, 175, 185], [160, 150, 140]], np.float32)
-    bed_palette = np.array([
-        [160, 60, 60], [60, 80, 150], [200, 190, 170],
-        [80, 130, 80], [120, 90, 140]], np.float32)
-    records: List[Record] = []
-    walls = rng.integers(0, len(wall_palette), num_images)
-    beds = rng.integers(0, len(bed_palette), num_images)
-    layouts = rng.integers(0, 3, num_images)
-    yy = np.linspace(0, 1, res, dtype=np.float32)[:, None, None]
-    for i in range(num_images):
-        wall = wall_palette[walls[i]] * rng.uniform(0.85, 1.15)
-        bed = bed_palette[beds[i]] * rng.uniform(0.85, 1.15)
-        horizon = int(res * (0.45 + 0.12 * layouts[i]))
-        img = np.empty((res, res, 3), np.float32)
-        img[:horizon] = wall
-        img[horizon:] = wall * 0.55 + 40.0          # darker floor
-        # window: bright rectangle on the wall
-        wx = rng.integers(res // 10, res // 2)
-        ww, wh = res // 5, horizon // 3
-        img[wh: 2 * wh, wx: wx + ww] = [235, 240, 245]
-        # bed: rectangle straddling the horizon
-        bx = rng.integers(res // 8, res // 2)
-        bw = rng.integers(res // 3, res // 2)
-        bh = res // 4
-        img[horizon - bh // 3: horizon + bh, bx: bx + bw] = bed
-        # headboard
-        img[horizon - bh // 2: horizon - bh // 3, bx: bx + bw] = bed * 0.6
-        # lighting gradient + sensor noise
-        img = img * (0.8 + 0.4 * (1.0 - yy))
-        img = img + rng.normal(0, 6, img.shape)
-        records.append(Record(
-            fpath=f"scenes/{i:05d}.jpg",
-            pixels=np.clip(img, 0, 255).astype(np.uint8)))
-    dataset = Dataset(records=records)
-    return dataset, {"wall": walls, "bed": beds, "layout": layouts}
 
 
 def make_synthetic_dataset(

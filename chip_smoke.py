@@ -59,20 +59,29 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    catch; GAN steps/s with the kernels and with the plain paths, in turns;
    (with ``--profile``: 3 GAN steps under torch.profiler;)
 7. whether Pillow, matplotlib and scikit-learn can be imported (a fact
-   to record: the path below needs none of them), then the training
-   surface at full width through the CLIs' ``main(argv)``, chained through
-   their own checkpoints under one temporary directory: ``cli.pretrain``
-   (128 synthetic images, batch 64, 2 epochs: 4 steps), ``cli.train`` from
-   its checkpoint (64 images, batch 16, 2 epochs: 8 steps, a sample grid
-   each epoch), its ``--resume`` to 3 epochs (4 steps more; every restored
-   state equal to its files bit for bit), and ``cli.infer`` from the GAN
-   checkpoint (2 captions with ``--swap 1 --all-stages --save-attention``:
-   10 PNGs, each read back to its shape; ``--benchmark`` at batch 64).
-   Each call's launch counts must be exact: K4 once and K5 twice a
-   pretrain or GAN step, K1 twice a GAN step, sample grid or serving
-   call, K2 twice a grid or serving call, K3 and K6 never. One line per
-   call: steps, seconds, steps/s through the loop with and without its
-   checkpoint saves and grids (beside phase 6's bare-step steps/s), each
+   to record: the path below needs none of them); the loop's batches
+   (pinned by the prefetch thread, copied and preprocessed on the main
+   stream while matmuls hold it) against the same batches built
+   synchronously, bit for bit; then the training surface at full width
+   through the CLIs' ``main(argv)``, chained through their own
+   checkpoints under one temporary directory: ``cli.pretrain`` (128
+   synthetic images, batch 64, 2 epochs: 4 steps), ``cli.train`` from its
+   checkpoint (64 images, batch 16, 2 epochs: 8 steps, a sample grid each
+   epoch; the encoders equal to the DAMSM checkpoint's bit for bit), its
+   ``--resume`` to 3 epochs (4 steps more; the restored state equal to
+   its files bit for bit, then every tensor of the generator and the
+   discriminators, the Adams, the generator state and the step moved,
+   the frozen encoders not), ``cli.infer`` from the GAN checkpoint (2
+   captions with ``--swap 1 --all-stages --save-attention``: 10 PNGs, each
+   read back to its shape; ``--benchmark`` at batch 64), and a GAN run of
+   512 images (2 epochs of 32 steps, one save and grid at its end) beside
+   4 windows of 16 bare steps on the state it returns. Every loss moves
+   and stays finite. Each call's launch counts must be exact: K4 once
+   and K5 twice a pretrain or GAN step, K1 twice a GAN step, sample grid
+   or serving call, K2 twice a grid or serving call, K3 and K6 never. One
+   line per call: steps, seconds, steps/s through the loop with and
+   without its checkpoint saves and grids (beside phase 6's bare-step
+   steps/s, and for the 512-image run beside its own bare windows), each
    save's seconds and MB on disk;
 8. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
@@ -905,6 +914,21 @@ def gan_fp32_vs_cpu(torch, rng) -> None:
                     f"{fault_err}")
 
 
+def bare_windows(torch, trainer, state, batch, windows: int = 4,
+                 steps: int = 16) -> list:
+    """steps/s of ``windows`` windows of ``steps`` bare train steps on one
+    batch (no loop, no data path), each window ended by a synchronize."""
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - start))
+    return rates
+
+
 def gan_throughput(torch, trainer, state, batch, card_name: str) -> float:
     """GAN steps/s and images/s at the configuration's batch over 6 windows
     of 4 steps, with the kernels and with the plain paths (fused_attention
@@ -925,11 +949,8 @@ def gan_throughput(torch, trainer, state, batch, card_name: str) -> float:
     rates = {label: [] for label, _, _ in paths}
     for round_ in range(6):
         for label, t, st in paths[round_ % 2:] + paths[:round_ % 2]:
-            start = time.perf_counter()
-            for _ in range(4):
-                t.train_step(st, batch)
-            torch.cuda.synchronize()
-            rates[label].append(4 / (time.perf_counter() - start))
+            rates[label] += bare_windows(torch, t, st, batch, windows=1,
+                                         steps=4)
     for label, windows in rates.items():
         median = statistics.median(windows)
         print(json.dumps({
@@ -946,7 +967,8 @@ class LoopProbe:
     the time and bytes of every checkpoint save and the time of every
     sample grid (each after a synchronize, so that the steps' queued work
     is not theirs), the loop's StepTimer, and a bit-for-bit comparison of
-    every restored state with the files it came from."""
+    every restored state with the files it came from (``restored`` keeps
+    each path with the state's saved form just after its restore)."""
 
     def __init__(self, torch):
         from attngan_torch.train import checkpoint, loops
@@ -981,7 +1003,7 @@ class LoopProbe:
                 name: checkpoint.load_part(path, name) for name in parts})
             fail_unless(not diff, f"restored state differs from {path} at "
                         f"{diff[:5]}")
-            probe.restored.append(path)
+            probe.restored.append((path, parts))
             return state
 
         class Timer(loops.StepTimer):
@@ -1036,6 +1058,42 @@ class LoopProbe:
         return out, counts, line
 
 
+def prefetched_vs_sync(torch, card_name: str) -> dict:
+    """The loop's batches (host batches pinned by the prefetch thread, then
+    the copies and the pyramid on the main stream) against the same
+    batches built synchronously from the numpy arrays, bit for bit. Each
+    loop batch is followed by 4 matmuls of 4096^2 that hold the stream, so
+    that the host runs ahead of the queued copies and frees their pinned
+    sources while they are pending. Returns the first synchronous batch."""
+    from attngan_torch.data.synthetic import make_synthetic_dataset
+    from attngan_torch.train import loops
+
+    dataset = make_synthetic_dataset(128)
+    dataset.build_vocab()
+    seed, b = 1, 16
+    busy = torch.randn(4096, 4096, device="cuda")
+    got = []
+    for batch in loops._epoch_batches(dataset, b, SEQ_LEN, seed,
+                                      torch.device("cuda")):
+        for _ in range(4):
+            torch.mm(busy, busy)
+        got.append(batch)
+    torch.cuda.synchronize()
+    want = [dataset.device_batch(host, "cuda") for host in
+            dataset.iter_batches(b, SEQ_LEN, seed=seed)
+            if not loops._skip_batch(host, b)]
+    fail_unless(len(got) == len(want) == 128 // b,
+                f"prefetch: {len(got)} batches, sync {len(want)}")
+    differ = sorted({key for g, w in zip(got, want) for key in w
+                     if g[key].device != w[key].device
+                     or not torch.equal(g[key], w[key])})
+    fail_unless(not differ, f"prefetched batches differ at {differ}")
+    print(json.dumps({"phase": "loops", "step": "prefetch_vs_sync",
+                      "batches": len(got), "keys": sorted(want[0]),
+                      "identical": True, "card": card_name}), flush=True)
+    return want[0]
+
+
 def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
     """Phase 7: the CLIs' main(argv) in-process, chained through their own
     checkpoints under one temporary directory, at full width (DamsmConfig
@@ -1044,11 +1102,26 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
     (4 steps), GAN training on 64 at batch 16 for 2 epochs (8 steps, a
     sample grid each epoch) from the pretrain's checkpoint, its resume to
     3 epochs (4 more steps; the restored state must equal the saved one
-    bit for bit), then serving from the GAN checkpoint: 2 captions through
-    --swap 1 --all-stages --save-attention (10 PNGs, each read back to its
-    shape) and --benchmark at batch 64. Each launch count must be exact.
-    Returns {kernel name: launches over the phase}."""
+    bit for bit, and the steps must then move every tensor of the
+    generator and the discriminators, the Adams, the generator state and
+    the step, and nothing of the frozen encoders), then serving from the
+    GAN checkpoint: 2 captions through --swap 1 --all-stages
+    --save-attention (10 PNGs, each read back to its shape) and
+    --benchmark at batch 64. Every loss history must be finite and move;
+    the GAN state's encoders must equal the DAMSM checkpoint's files bit
+    for bit. Before the chain, the loop's prefetched batches against
+    synchronous ones (``prefetched_vs_sync``); after it, the loop's cost:
+    a GAN run of 2 epochs of 32 steps (512 images) with one save and one
+    grid, at its end, beside 4 windows of 16 bare steps on the state it
+    returns. Each launch count must be exact. Returns {kernel name:
+    launches over the phase}."""
     from attngan_torch.cli import infer, pretrain, train
+    from attngan_torch.train.checkpoint import (
+        diff_parts,
+        latest_checkpoint,
+        load_part,
+        state_parts,
+    )
     from attngan_torch.utils.imaging import read_png
 
     counters = kernel_counters()
@@ -1061,6 +1134,7 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
 
+    bare_batch = prefetched_vs_sync(torch, card_name)
     with tempfile.TemporaryDirectory() as d, LoopProbe(torch) as probe:
         common = ["--captions-path", f"{d}/caps.json",
                   "--checkpoint-dir", f"{d}/ckpt", "--image-dir", f"{d}/img"]
@@ -1072,7 +1146,8 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
                 *common]))
         steps = state.step
         fail_unless(steps == 4, f"pretrain ran {steps} steps, not 4")
-        fail_unless(all(map(math.isfinite, history)), f"loss {history}")
+        fail_unless(all(map(math.isfinite, history))
+                    and len(set(history)) > 1, f"pretrain: loss {history}")
         # the forward, and the backward's pass, on the tensor cores
         fail_unless([counters[n].tc_launches - b for n, b in
                      zip(tc_names, tc_before)] == [steps, steps],
@@ -1083,40 +1158,64 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
                           "steps": steps, "losses": history, **line,
                           "card": card_name}), flush=True)
 
-        gan = ["--synthetic", "64", "--batch-size", "16",
-               "--damsm-checkpoint", f"{d}/ckpt/damsm", *common]
-        for label, argv, want_steps, grids in (
-                ("gan", ["--epochs", "2"], 8, 2),
-                ("gan_resume", ["--epochs", "3", "--resume"], 4, 1)):
-            n_restored = len(probe.restored)
-            (_, state, losses), counts, line = probe.run(
-                counters, lambda: train.main([*gan, *argv]))
+        damsm_ckpt = latest_checkpoint(f"{d}/ckpt/damsm")
+
+        def gan_run(label, argv, want_steps, grids):
+            (trainer, state, losses), counts, line = probe.run(
+                counters, lambda: train.main(argv))
             steps = len(losses["g_total"])
             fail_unless(steps == want_steps, f"{label}: {steps} steps")
             fail_unless(all(math.isfinite(v) for h in losses.values()
                             for v in h), f"{label}: non-finite losses")
-            # the DAMSM encoders' restore, and the resume's
-            fail_unless(len(probe.restored) == n_restored + 1
-                        + (label == "gan_resume"), f"{label}: restores")
+            still = [k for k, h in losses.items() if len(set(h)) == 1]
+            fail_unless(not still, f"{label}: {still} did not move")
+            for name in ("rnn", "cnn"):       # loaded, then frozen
+                diff = diff_parts(getattr(state, name).state_dict(),
+                                  load_part(damsm_ckpt, name))
+                fail_unless(not diff, f"{label}: {name} differs from "
+                            f"{damsm_ckpt} at {diff[:5]}")
             expect(label, counts, {
                 "word_attention": 2 * steps + 2 * grids,
                 "upblock_fused_eval": 2 * grids,
                 "damsm_similarity": steps,
                 "damsm_similarity_bwd_square": 2 * steps})
-            print(json.dumps({"phase": "loops", "step": label, "batch": 16,
-                              "steps": steps, "state_step": state.step,
-                              "grids": grids, **line,
-                              "bare_step_steps_per_s": bare_gan_rate,
-                              "final_losses": {k: v[-1]
-                                               for k, v in losses.items()},
-                              "card": card_name}), flush=True)
+            line.update(batch=16, steps=steps, state_step=state.step,
+                        grids=grids, bare_step_steps_per_s=bare_gan_rate,
+                        final_losses={k: v[-1] for k, v in losses.items()})
+            return trainer, state, line
+
+        gan = ["--synthetic", "64", "--batch-size", "16",
+               "--damsm-checkpoint", f"{d}/ckpt/damsm", *common]
+        _, state, line = gan_run("gan", [*gan, "--epochs", "2"], 8, 2)
+        fail_unless(not probe.restored, "gan: restored a checkpoint")
+        print(json.dumps({"phase": "loops", "step": "gan", **line,
+                          "card": card_name}), flush=True)
+        del state
+        _, state, line = gan_run("gan_resume",
+                                 [*gan, "--epochs", "3", "--resume"], 4, 1)
+        fail_unless(len(probe.restored) == 1, "gan_resume: restores")
+        restored = probe.restored[-1][1]
+        moved = {where.split(".")[1]
+                 for where in diff_parts(state_parts(state), restored)}
+        want_moved = {"gen", "discs", "gen_optimizer", "disc_optimizers",
+                      "generator", "step"}
+        fail_unless(moved == want_moved, f"gan_resume: moved {sorted(moved)}"
+                    f" since the restore, expected {sorted(want_moved)}")
+        still = [f"{field}.{k}" for field in ("gen", "discs")
+                 for k, v in getattr(state, field).state_dict().items()
+                 if torch.equal(v.cpu(), restored[field][k])]
+        fail_unless(not still, f"gan_resume: unmoved since the restore: "
+                    f"{still[:5]}")
+        print(json.dumps({"phase": "loops", "step": "gan_resume", **line,
+                          "moved_since_restore": sorted(moved),
+                          "card": card_name}), flush=True)
         fail_unless(state.step == 12, f"the resumed run ends at step "
                     f"{state.step}, not 12")
         with open(f"{d}/ckpt/gan/progress.json") as f:
             fail_unless(json.load(f)["epoch"] == 3, "progress.json epoch")
         fail_unless(os.path.exists(f"{d}/img/epoch_3-256x256.png"),
                     "the resumed run's grid is not epoch 3's")
-        del state
+        del state, restored
 
         serve = ["--checkpoint", f"{d}/ckpt/gan",
                  "--captions-path", f"{d}/caps.json"]
@@ -1151,6 +1250,24 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
                           "calls": calls, "img_per_s": bench["value"],
                           "spread_pct": bench["spread_pct"], **line,
                           "card": card_name}), flush=True)
+
+        # the loop's cost over the bare step: 63 timed steps, the epoch
+        # boundary once, the save and the grid only at the end
+        trainer, state, line = gan_run("gan_long", [
+            *gan, "--synthetic", "512", "--epochs", "2",
+            "--checkpoint-every-epochs", "3",
+            "--checkpoint-dir", f"{d}/long", "--image-dir", f"{d}/long_img"],
+            64, 1)
+        rates = bare_windows(torch, trainer, state, bare_batch)
+        median = statistics.median(rates)
+        print(json.dumps({
+            "phase": "loops", "step": "gan_long", **line,
+            "bare_windows_steps_per_s": rates,
+            "bare_median_steps_per_s": median,
+            "bare_spread_pct": 100 * (max(rates) - min(rates)) / median,
+            "loop_vs_bare_pct": 100 * (
+                line["steps_per_s_without_saves"] / median - 1),
+            "card": card_name}), flush=True)
     return total
 
 

@@ -45,19 +45,13 @@ def _records_equal(ours, theirs):
         np.testing.assert_array_equal(a.pixels, b.pixels)
 
 
-@pytest.mark.parametrize("seed", [0, 5])
-def test_synthetic_dataset_matches_jax(seed):
-    kw = dict(num_images=7, num_classes=3, seed=seed, levels=3, res=32)
+@pytest.mark.parametrize("seed,with_captions", [(0, True), (5, True),
+                                                (3, False)])
+def test_synthetic_dataset_matches_jax(seed, with_captions):
+    kw = dict(num_images=7, num_classes=3, seed=seed, levels=3, res=32,
+              with_captions=with_captions)
     _records_equal(synthetic.make_synthetic_dataset(**kw).records,
                    jax_synthetic.make_synthetic_dataset(**kw).records)
-
-
-def test_scene_dataset_matches_jax():
-    ours, our_factors = synthetic.make_scene_dataset(6, seed=2, res=48)
-    theirs, their_factors = jax_synthetic.make_scene_dataset(6, seed=2, res=48)
-    _records_equal(ours.records, theirs.records)
-    for key in their_factors:
-        np.testing.assert_array_equal(our_factors[key], their_factors[key])
 
 
 def _flipped(ds):

@@ -12,7 +12,8 @@
 - ``_skip_batch`` decides as the JAX loop's does; the sample grid leaves
   the generator in the mode it found it in; ``restore_inference_state``
   needs only the checkpoint's text encoder and generator and serves the
-  trained generator's images.
+  trained generator's images; ``load_damsm_encoders`` needs only a DAMSM
+  checkpoint's encoders.
 - The CLI chain pretrain -> train -> infer (--swap, --all-stages,
   --save-attention, --benchmark) runs in a process where Pillow,
   matplotlib and scikit-learn cannot be imported, and writes every file the
@@ -213,6 +214,24 @@ def test_restore_inference_state_serves_the_trained_generator(tmp_path):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_load_damsm_encoders_reads_only_the_encoders(tmp_path):
+    # the CLI's DAMSM trainer has the default word-embedding width
+    cfg = replace(DAMSM, epochs=1, text_emb_dim=DamsmConfig().text_emb_dim)
+    _, state, _ = _run("damsm", cfg, _run_cfg(tmp_path))
+    ckpt = latest_checkpoint(str(tmp_path / "ckpt" / "damsm"))
+    only = tmp_path / "only" / os.path.basename(ckpt)
+    only.mkdir(parents=True)
+    for name in ("rnn.pt", "cnn.pt"):          # nothing else is read
+        shutil.copy(os.path.join(ckpt, name), only / name)
+    ds = _dataset()
+    ds.build_vocab()
+    rnn, cnn = train.load_damsm_encoders(str(tmp_path / "only"), GAN,
+                                         ds.vocab.n_words, ds.max_seqlen,
+                                         device="cpu")
+    assert not diff_parts(rnn.state_dict(), state.rnn.state_dict())
+    assert not diff_parts(cnn.state_dict(), state.cnn.state_dict())
+
+
 CHAIN = textwrap.dedent("""
     import json, os, sys
     sys.modules["PIL"] = sys.modules["matplotlib"] = sys.modules["sklearn"] = None
@@ -298,7 +317,8 @@ def test_infer_refuses_a_contradicting_shape_flag(tmp_path, capsys):
 
 @pytest.mark.parametrize("cli,flag", [
     (pretrain, "--cluster"), (pretrain, "--cache-features"),
-    (pretrain, "--pretrained-cnn"), (train, "--stream"),
+    (pretrain, "--pretrained-cnn"), (pretrain, "--max-vocab-size"),
+    (train, "--stream"),
     (train, "--mesh-shape"), (infer, "--int8")])
 def test_flags_of_later_slices_are_refused(cli, flag, capsys):
     with pytest.raises(SystemExit):
