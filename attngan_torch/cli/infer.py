@@ -6,9 +6,12 @@ encoder and generator of a GAN checkpoint written by
 ``python -m attngan_torch.cli.train`` (its directory, for the newest step,
 or one ``step_*`` dir; the model-shape flags default to the values its
 ``config.json`` recorded, and an explicit flag that contradicts them is an
-error), or a ``save_infer_state`` .pt, or, without one, random weights
-from --seed. Then it measures throughput (--benchmark) or writes PNGs for
-the --image-names entries, captioned from the captions JSON: the final
+error), or a ``save_infer_state`` .pt. Without --checkpoint it restores
+the newest step of <checkpoint dir>/gan, where ``cli.train`` writes by
+default, and only where none is found there serves random weights from
+--seed, with a warning (``--checkpoint ""``: random weights). Then it
+measures throughput (--benchmark) or writes PNGs for the --image-names
+entries, captioned from the captions JSON: the final
 stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
 first two captions (--swap). The JAX CLI's --int8, --export* and
@@ -43,11 +46,13 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--captions-path", default=Config.CAPTIONS_JSON)
-    p.add_argument("--checkpoint", default="",
+    p.add_argument("--checkpoint", default=None,
                    help="a cli.train checkpoint dir (its newest step), one "
                         "step_* dir, or a .pt written by attngan_torch."
-                        "infer.sampler.save_infer_state; none = random "
-                        "weights")
+                        "infer.sampler.save_infer_state; default: "
+                        f"{os.path.join(Config.CHECKPOINT_DIR, 'gan')}, "
+                        "or random weights (with a warning) where it holds "
+                        "no step_*; '' = random weights")
     p.add_argument("--image-names", nargs="*", default=[])
     p.add_argument("--swap", type=int, default=0,
                    help="swap N cluster tokens between the first two captions")
@@ -116,6 +121,26 @@ def _training_checkpoint(path: str):
                      f"directory of step_* checkpoints")
 
 
+def _checkpoint_source(flag: str | None) -> str:
+    """The checkpoint to serve: --checkpoint as given, or without it
+    Config.CHECKPOINT_DIR/gan where that holds a step_* checkpoint (JAX's
+    default and fallback, attngan_tpu/cli/infer.py); "" = random weights,
+    with a warning."""
+    from attngan_torch.core.config import Config
+    from attngan_torch.train.checkpoint import latest_checkpoint
+
+    if flag is None:
+        default = os.path.join(Config.CHECKPOINT_DIR, "gan")
+        if latest_checkpoint(default) is not None:
+            return default
+        print(f"WARNING: no checkpoint found in {default}; using random "
+              f"weights")
+        return ""
+    if not flag:
+        print("WARNING: no checkpoint given; using random weights")
+    return flag
+
+
 def _load_state(args, cfg, shapes, handler):
     import torch
 
@@ -126,18 +151,17 @@ def _load_state(args, cfg, shapes, handler):
         restore_inference_state,
     )
 
-    if not args.checkpoint:
-        print("WARNING: no checkpoint given; using random weights")
+    source = _checkpoint_source(args.checkpoint)
+    if not source:
         torch.manual_seed(args.seed)
         vocab = handler.vocab_size if handler is not None else BENCH_VOCAB
         return InferState(cfg, vocab)
-    source = args.checkpoint
     if source.endswith(".pt"):
         state = load_infer_state(source, cfg, device="cpu")
         _refuse_contradictions(
             shapes, {k: getattr(state.cfg, k) for k in SHAPE_FIELDS}, source)
     else:
-        ckpt, directory = _training_checkpoint(args.checkpoint)
+        ckpt, directory = _training_checkpoint(source)
         sidecar = load_config_sidecar(directory) or {}
         recorded = {k: sidecar[k] for k in SHAPE_FIELDS if k in sidecar}
         if recorded:

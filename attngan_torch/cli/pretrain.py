@@ -2,23 +2,30 @@
 """DAMSM pretraining on the GPU: ``python -m attngan_torch.cli.pretrain``.
 
 Port of attngan_tpu/cli/pretrain.py. Builds the dataset (synthetic, or the
-images under --data-root with the pseudo-captions of --captions-path),
-then trains the BiLSTM text encoder and the image encoder's heads with the
-DAMSM word and sentence losses, the words loss through the hand-written
-kernels. Checkpoints go to --checkpoint-dir/damsm, loss plots to
---image-dir. A synthetic run writes its captions to --captions-path, from
-which the GAN and serving phases rebuild the same vocabulary.
+images under --data-root, decoded eagerly or, with --stream or above 50k
+records, batch by batch), gives it pseudo-captions (with --cluster, the
+clustering captioner: a seeded ResNet-18 embeds every image on the GPU,
+the embeddings are reduced and clustered at a ladder of k, and the
+captions JSON is written to --captions-path; else the captions of
+--captions-path), then trains the BiLSTM text encoder and the image
+encoder's heads with the DAMSM word and sentence losses, the words loss
+through the hand-written kernels. Checkpoints go to --checkpoint-dir/damsm,
+loss plots to --image-dir. A synthetic run writes its captions to
+--captions-path, from which the GAN and serving phases rebuild the same
+vocabulary.
 
---data-root decodes images with Pillow; the synthetic path needs neither
-Pillow nor matplotlib. The JAX CLI's clustering captioner (--cluster,
---max-vocab-size and its other options), streaming loader (--stream),
-feature cache, superbatch, int8 and train-mode trunk options,
+--data-root decodes images with the native JPEG loader or Pillow; the
+synthetic path needs neither Pillow nor matplotlib, and --cluster needs
+scipy but not scikit-learn (unless --reducer spectral or tsne). The JAX
+CLI's feature cache, superbatch, int8 and train-mode trunk options,
 --pretrained-cnn and --mesh-shape are later slices of the port: argparse
 refuses them.
 
 Examples:
+  python -m attngan_torch.cli.pretrain --data-root /data/bedrooms \
+      --cluster --stream --epochs 30
   python -m attngan_torch.cli.pretrain --synthetic 128 --epochs 2
-  python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \\
+  python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \
       --epochs 1 --emb-dim 32 --image-encoder tiny --device cpu
 """
 
@@ -37,7 +44,29 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", type=int, default=0,
                    help="use N synthetic images instead of --data-root")
     p.add_argument("--max-images", type=int, default=99999)
+    p.add_argument("--stream", action="store_true",
+                   help="bounded-memory streaming loader: decode batches on "
+                        "demand (native C++ thread-pool decoder, overlapped "
+                        "with training via prefetch) instead of eagerly "
+                        "holding the whole corpus in host RAM; required "
+                        "for LSUN-scale corpora; on by itself above 50k "
+                        "records")
     p.add_argument("--captions-path", default=Config.CAPTIONS_JSON)
+    p.add_argument("--cluster", action="store_true",
+                   help="run the clustering captioner (else load captions "
+                        "JSON)")
+    p.add_argument("--cluster-method", default="agglomerative_complete",
+                   choices=["kmeans", "agglomerative_single_linkage",
+                            "agglomerative_complete"])
+    p.add_argument("--latent-dims", type=int, default=128)
+    p.add_argument("--reducer", default="auto",
+                   choices=["auto", "umap", "pca", "spectral", "tsne"],
+                   help="embedding reducer before clustering; umap = the "
+                        "native implementation (data/umap_native.py); "
+                        "spectral and tsne need scikit-learn; auto = pca, "
+                        "the measured real-photo default")
+    p.add_argument("--min-clusters", type=int, default=5)
+    p.add_argument("--max-vocab-size", type=int, default=1000)
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--lr", type=float, default=0.002)
@@ -70,18 +99,33 @@ def main(argv=None):
     """Returns run_damsm_training's (trainer, state, loss history)."""
     args = parse_args(argv)
     from attngan_torch.core.config import DamsmConfig, RunConfig
-    from attngan_torch.data.dataset import Dataset
+    from attngan_torch.data.streaming import open_dataset
     from attngan_torch.data.synthetic import make_synthetic_dataset
     from attngan_torch.train.loops import run_damsm_training
 
     if args.synthetic:
-        dataset = make_synthetic_dataset(args.synthetic)
-        # synthetic captions are generated in memory; persist them so the
-        # GAN and serving phases can rebuild the same vocab from JSON
+        dataset = make_synthetic_dataset(args.synthetic,
+                                         with_captions=not args.cluster)
+    else:
+        dataset = open_dataset(args.data_root, max_images=args.max_images,
+                               stream=args.stream)
+
+    if args.cluster:
+        from attngan_torch.data.clusterer import HierarchicalClusterer
+
+        for rec in dataset.records:     # reset_captions_and_class_ids
+            rec.caption, rec.class_id = [], None
+        HierarchicalClusterer(device=args.device).cluster(
+            dataset, latent_dims=args.latent_dims,
+            max_vocab_size=args.max_vocab_size,
+            min_clusters=args.min_clusters, method=args.cluster_method,
+            reducer=args.reducer)
+    if args.cluster or args.synthetic:
+        # clustered or synthetic captions live in memory; persist them so
+        # the GAN and serving phases can rebuild the same vocab from JSON
         os.makedirs(os.path.dirname(args.captions_path) or ".", exist_ok=True)
         dataset.save_captions_and_class_ids(args.captions_path)
     else:
-        dataset = Dataset(args.data_root, max_images=args.max_images)
         dataset.load_captions_and_class_ids(args.captions_path)
 
     cfg = DamsmConfig(emb_dim=args.emb_dim, batch_size=args.batch_size,

@@ -10,9 +10,10 @@ step with the adversarial, DAMSM and KL terms. Checkpoints go to
 --image-dir. ``python -m attngan_torch.cli.infer --checkpoint
 <checkpoint-dir>/gan`` serves the result.
 
---data-root decodes images with Pillow; the synthetic path needs neither
-Pillow nor matplotlib. --stream and --mesh-shape are later slices of the
-port: argparse refuses them.
+--data-root decodes images eagerly with Pillow or, with --stream (on by
+itself above 50k records), batch by batch through the native JPEG loader;
+the synthetic path needs neither Pillow nor matplotlib. --mesh-shape is a
+later slice of the port: argparse refuses it.
 
 Examples:
   python -m attngan_torch.cli.train --synthetic 64 --epochs 2 \\
@@ -35,6 +36,11 @@ def parse_args(argv=None):
     p.add_argument("--data-root", default=Config.DATA_ROOT)
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--max-images", type=int, default=99999)
+    p.add_argument("--stream", action="store_true",
+                   help="bounded-memory streaming loader: decode batches on "
+                        "demand instead of eagerly holding the whole corpus "
+                        "in host RAM; required for LSUN-scale corpora; on "
+                        "by itself above 50k records")
     p.add_argument("--captions-path", default=Config.CAPTIONS_JSON)
     p.add_argument("--epochs", type=int, default=150)
     p.add_argument("--batch-size", type=int, default=16)
@@ -100,14 +106,15 @@ def main(argv=None):
     """Returns run_gan_training's (trainer, state, {metric: history})."""
     args = parse_args(argv)
     from attngan_torch.core.config import GanConfig, RunConfig
-    from attngan_torch.data.dataset import Dataset
+    from attngan_torch.data.streaming import open_dataset
     from attngan_torch.data.synthetic import make_synthetic_dataset
     from attngan_torch.train.loops import run_gan_training
 
     if args.synthetic:
         dataset = make_synthetic_dataset(args.synthetic)
     else:
-        dataset = Dataset(args.data_root, max_images=args.max_images)
+        dataset = open_dataset(args.data_root, max_images=args.max_images,
+                               stream=args.stream)
         dataset.load_captions_and_class_ids(args.captions_path)
     dataset.build_vocab()
 

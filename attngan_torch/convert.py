@@ -419,3 +419,47 @@ def load_gan_flat(flat: Mapping[str, np.ndarray], state) -> None:
                    sd["adam"].get(who, {}), sd["count"][who])
     state.step = sd["step"]
     state.frozen_trunk = None    # the trunk may have changed: refold
+
+
+# ------------------------------------------------------------ ResNet18
+
+_RESNET_LEAVES = {"params": {"kernel": "weight", "scale": "weight",
+                             "bias": "bias"},
+                  "batch_stats": {"mean": "running_mean",
+                                  "var": "running_var"}}
+_RESNET_SCOPES = {"downsample_conv": "downsample.0",
+                  "downsample_bn": "downsample.1"}
+
+
+def _resnet_key(key: str) -> str:
+    """'params/layer2_0/downsample_bn/scale' -> 'layer2.0.downsample.1.weight'
+    (models/resnet.py's torchvision keys)."""
+    tree, *scopes, leaf = key.split("/")
+    leaves = _RESNET_LEAVES.get(tree, {})
+    if not scopes or leaf not in leaves:
+        raise KeyError(f"unexpected ResNet18 leaf {key!r}")
+    parts = [re.sub(r"^(layer\d)_(\d)$", r"\1.\2", s) for s in scopes]
+    parts = [_RESNET_SCOPES.get(p, p) for p in parts]
+    return ".".join(parts + [leaves[leaf]])
+
+
+def convert_resnet_flat(flat: Mapping[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ImageEmbedder``'s variables, flattened with "/" under
+    ``params`` and ``batch_stats`` -> a models/resnet.py ResNet18
+    state_dict (conv kernels HWIO -> OIHW; each BN's
+    ``num_batches_tracked`` 0)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        _put(sd, _resnet_key(key), _layout(value), key)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace("running_mean", "num_batches_tracked")] = \
+            torch.tensor(0)
+    return sd
+
+
+def load_resnet_flat(flat: Mapping[str, np.ndarray], model: torch.nn.Module
+                     ) -> None:
+    """Fill a ResNet18 in place; raises on any key missing or left over on
+    either side, or a shape that disagrees."""
+    model.load_state_dict(convert_resnet_flat(flat), strict=True)

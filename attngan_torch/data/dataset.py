@@ -78,17 +78,29 @@ def preprocess_pyramid(images_u8: torch.Tensor, flip: torch.Tensor
     return out
 
 
-def _decode_records(paths: List[str], max_images: int, flip_augment: bool
-                    ) -> List["Record"]:
-    """Eager decode of the scanned files into Records; unreadable files are
-    skipped (reference bedrooms.py:143-144). The JAX package's native C++
-    loader waits for the streaming slice."""
+def _decode_records(paths: List[str], max_images: int, flip_augment: bool,
+                    use_native: bool) -> List["Record"]:
+    """Eager decode of the scanned files into Records, through the
+    multithreaded native C++ loader (data/native_loader.py) where asked
+    and built, else Pillow; unreadable files are skipped (reference
+    bedrooms.py:143-144)."""
+    from attngan_torch.data import native_loader
+
     records: List[Record] = []
+    native = use_native and native_loader.available()
+    if native:
+        images, ok = native_loader.decode_batch(paths, CANONICAL_RES)
+        decoded = {p: images[i] for i, p in enumerate(paths) if ok[i]}
     for path in paths:
-        try:
-            pixels = decode_image(path)
-        except OSError:
-            continue
+        if native:
+            pixels = decoded.get(path)
+            if pixels is None:
+                continue
+        else:
+            try:
+                pixels = decode_image(path)
+            except OSError:
+                continue
         records.append(Record(path, pixels))
         if flip_augment:
             records.append(Record(f"{path}_r", pixels, flip=True))
@@ -113,7 +125,11 @@ class Dataset:
 
     def __init__(self, rootdir: str = "", max_images: int = 99999,
                  flip_augment: bool = True,
-                 records: Optional[List[Record]] = None):
+                 records: Optional[List[Record]] = None,
+                 use_native_loader: bool = False):
+        # use_native_loader: the C++ thread-pool decoder, off by default as
+        # in the JAX package (its resize filter differs from Pillow's by a
+        # few levels, tests/test_native_loader.py)
         self.rootdir = rootdir
         self.vocab = Vocab()
         if records is not None:
@@ -122,14 +138,25 @@ class Dataset:
             self.records = []
             if rootdir:
                 paths = scan_image_paths(rootdir, max_images)
-                self.records = _decode_records(paths, max_images, flip_augment)
+                self.records = _decode_records(paths, max_images, flip_augment,
+                                               use_native_loader)
 
     def __len__(self) -> int:
         return len(self.records)
 
+    # ----- pixel access (overridden by data/streaming.py) -----
+    #
+    # Everything that touches pixels goes through these two hooks, so the
+    # bounded-memory StreamingDataset can decode on demand under the same
+    # batching, vocab and caption semantics.
+
+    def _record_pixels(self, record: Record) -> np.ndarray:
+        """(256, 256, 3) uint8 pre-flip pixels of one record."""
+        return record.pixels
+
     def _batch_pixels(self, records: List[Record]) -> np.ndarray:
         """(N, 256, 256, 3) uint8 pre-flip pixels of a batch of records."""
-        return np.stack([r.pixels for r in records])
+        return np.stack([self._record_pixels(r) for r in records])
 
     @property
     def max_seqlen(self) -> int:
@@ -193,6 +220,32 @@ class Dataset:
                 "pixels": self._batch_pixels(recs),
                 "flip": np.asarray([r.flip for r in recs], bool),
             }
+
+    def evaluate_clustering(self, idx, max_images: int = 50, nrow: int = 10,
+                            folder: str = "images_testing", seed: int = 0):
+        """For each cluster level of one image's caption (finest first),
+        write a grid of up to ``max_images`` co-clustered members to
+        ``folder/k-<k>.png`` (reference bedrooms.py:186-207). ``idx`` is a
+        record index or fpath. Returns {k value: member count}."""
+        from attngan_torch.utils.imaging import image_grid, save_image
+
+        record = (self.records[idx] if isinstance(idx, int)
+                  else next(r for r in self.records if r.fpath == idx))
+        counts = {}
+        rng = np.random.default_rng(seed)
+        for i, token in enumerate(reversed(record.caption), 1):
+            k_value = token.split("c")[0].lstrip("k")
+            members = [r for r in self.records
+                       if len(r.caption) >= i and r.caption[-i] == token]
+            counts[k_value] = len(members)
+            chosen = list(members)
+            rng.shuffle(chosen)
+            chosen = chosen[:max_images]
+            imgs = self._batch_pixels(chosen).astype(np.float32) / 255.0
+            os.makedirs(folder, exist_ok=True)
+            save_image(image_grid(imgs, nrow=nrow),
+                       os.path.join(folder, f"k-{k_value}.png"))
+        return counts
 
     @staticmethod
     def device_batch(host_batch: Dict[str, object],

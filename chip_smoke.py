@@ -83,7 +83,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    without its checkpoint saves and grids (beside phase 6's bare-step
    steps/s, and for the 512-image run beside its own bare windows), each
    save's seconds and MB on disk;
-8. one ``{"kernels": [...]}`` line (launches summed over every path's
+8. the captioner: the port's scene corpus (512 images, seed 0) written as
+   JPEGs (Pillow, quality 95); whether the native JPEG decoder built, and
+   the corpus decoded by it and by Pillow (images/s each, their max and
+   mean absolute difference, the mean under 6 levels an image); the 1024
+   records (files and flips) embedded by the seeded ResNet-18 on the card
+   in fp32 (TF32 off; img/s) and on the CPU, the first 64 within 1e-4;
+   both embeddings clustered at the defaults (agglomerative_complete,
+   ``auto`` = pca to 128 dims, vocabulary 1000: k = 7 ... 500): the two
+   trees hold the same merges, at heights within 1e-4, in the same order
+   but where merges lie closer than that (such a swap renumbers the labels
+   of every cut above it: the k where labels differ are printed), and the
+   same partitions at every k, with the ARI of each k against the
+   corpus's wall, bed and layout factors; then ``cli.pretrain
+   --data-root --cluster --stream`` at full width over the 1024 records (batch 64, 1 epoch: 16
+   steps; K4 16 and K5 32 launches, every other kernel 0; a finite loss
+   that moves; a captions JSON of every record with one token per k),
+   and ``cli.pretrain --stream`` again from that JSON, with the same
+   launch counts;
+9. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +170,17 @@ GAN_CHECK_BATCH = 2   # the fp32 GAN step against the CPU
 # an H100 80GB HBM3 at 700 W the generator's read 1.8e-2, and each of
 # gan_faults 0.96-0.98 (the gan_fp32_vs_cpu line's faulty_steps).
 GAN_GRAD_RTOL = 0.1
+# phase 8: the scene corpus written as JPEGs, the card's embeddings of its
+# records (files and flips) against the CPU's, fp32 with TF32 off (the
+# same function in other conv algorithms; features of magnitude ~1-5)
+CAPTIONER_IMAGES = 512
+EMBED_ATOL, EMBED_CHECK = 1e-4, 64
+NATIVE_MAD = 6.0      # native vs Pillow decode, mean levels an image
+# ... and their complete-linkage trees: merge heights (cosine distances of
+# the 128-dim PCA) within 1e-4, 100x the embeddings' relative difference
+# (~1e-6: 2.4e-6 on features up to 2.4, H100 80GB HBM3 at 700 W); merges
+# closer than that may come in either order
+HEIGHT_ATOL = 1e-4
 
 
 def card() -> str:
@@ -1271,6 +1300,234 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
     return total
 
 
+def write_scene_corpus(directory: str) -> tuple:
+    """The port's scene corpus (CAPTIONER_IMAGES, seed 0) as JPEGs in
+    ``directory``; returns (paths, {factor: per-image ints})."""
+    from PIL import Image
+
+    from attngan_torch.data.synthetic import make_scene_dataset
+
+    dataset, factors = make_scene_dataset(CAPTIONER_IMAGES, seed=0)
+    paths = []
+    for rec in dataset.records:
+        path = os.path.join(directory, os.path.basename(rec.fpath))
+        Image.fromarray(rec.pixels).save(path, quality=95)
+        paths.append(path)
+    return paths, factors
+
+
+def decoders(paths, card_name: str) -> None:
+    """Whether the native JPEG decoder built, and the corpus decoded by it
+    and by Pillow: images/s each, their differences."""
+    import numpy as np
+
+    from attngan_torch.data import native_loader
+    from attngan_torch.data.dataset import decode_image
+
+    t = time.perf_counter()
+    available = native_loader.available()
+    line = {"phase": "captioner", "step": "decoders", "files": len(paths),
+            "native_available": available,
+            "native_build_error": native_loader.build_error(),
+            "native_build_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    pil = np.stack([decode_image(p) for p in paths])
+    line["pil_img_per_s"] = len(paths) / (time.perf_counter() - t)
+    if available:
+        t = time.perf_counter()
+        native, ok = native_loader.decode_batch(paths)
+        line["native_img_per_s"] = len(paths) / (time.perf_counter() - t)
+        fail_unless(bool(ok.all()), "native decode failed on the corpus")
+        diff = np.abs(native.astype(np.int16) - pil.astype(np.int16))
+        per_image = diff.reshape(len(paths), -1).mean(axis=1)
+        line.update(max_abs_diff=int(diff.max()),
+                    mean_abs_diff=float(diff.mean()),
+                    worst_image_mean_abs_diff=float(per_image.max()))
+        fail_unless(per_image.max() < NATIVE_MAD, f"native decode off Pillow "
+                    f"by {per_image.max()} levels on average in an image")
+    print(json.dumps({**line, "card": card_name}), flush=True)
+
+
+def same_tree(xa, xb) -> dict:
+    """Hold the complete-linkage cosine trees of two embeddings of one
+    corpus to the same merges (as sets of leaves), their heights within
+    HEIGHT_ATOL, merging in another order only where their heights lie
+    within HEIGHT_ATOL of each other. Such a swap renumbers the labels of
+    every cut above it (the numbering follows the merge order) and changes
+    no partition. Returns the measured sizes."""
+    import numpy as np
+    from scipy.cluster import hierarchy
+
+    def merges(z):
+        n = z.shape[0] + 1
+        members, out = {}, []
+        for i, (a, b) in enumerate(z[:, :2].astype(int)):
+            leaves = (members.get(a, frozenset([a]))
+                      | members.get(b, frozenset([b])))
+            members[n + i] = leaves
+            out.append(leaves)
+        return out
+
+    za, zb = (hierarchy.linkage(x, "complete", "cosine") for x in (xa, xb))
+    index_b = {leaves: i for i, leaves in enumerate(merges(zb))}
+    missing = [leaves for leaves in merges(za) if leaves not in index_b]
+    fail_unless(not missing, f"the card's tree has {len(missing)} merges "
+                f"the CPU's has not")
+    pos = np.array([index_b[leaves] for leaves in merges(za)])
+    height_err = float(np.abs(za[:, 2] - zb[pos, 2]).max())
+    h = za[:, 2]
+    later_in_b = np.triu(pos[:, None] > pos[None, :], k=1)   # i < j in A
+    gaps = (h[None, :] - h[:, None])[later_in_b]
+    line = {"merge_height_max_abs_err": height_err,
+            "merges_reordered": int(later_in_b.any(axis=1).sum()),
+            "max_height_gap_reordered": float(gaps.max()) if gaps.size
+            else 0.0,
+            "min_height_gap": float(np.diff(h).min())}
+    fail_unless(height_err <= HEIGHT_ATOL
+                and line["max_height_gap_reordered"] <= HEIGHT_ATOL,
+                f"card and CPU trees: {line}")
+    return line
+
+
+def captioner_phase(torch, card_name: str) -> dict:
+    """Phase 8: the clustering captioner and the streaming loader on the
+    scene corpus (see the module docstring). Returns {kernel name:
+    launches over the phase's two CLI calls}."""
+    import numpy as np
+
+    from attngan_torch.cli import pretrain
+    from attngan_torch.data.clusterer import (
+        HierarchicalClusterer,
+        adjusted_rand_index,
+        cluster_ladder,
+        determine_k_values,
+        reduce_dimensionality,
+    )
+    from attngan_torch.data.dataset import preprocess_pyramid
+    from attngan_torch.data.streaming import StreamingDataset
+
+    counters = kernel_counters()
+    total = {}
+    with tempfile.TemporaryDirectory() as d:
+        corpus = os.path.join(d, "scenes")
+        os.makedirs(corpus)
+        t = time.perf_counter()
+        paths, factors = write_scene_corpus(corpus)
+        write_s = time.perf_counter() - t
+        decoders(paths, card_name)
+
+        # the embedder: card against CPU, and its rate on the card
+        dataset = StreamingDataset(corpus)
+        n = len(dataset)
+        fail_unless(n == 2 * CAPTIONER_IMAGES, f"{n} records")
+        card = HierarchicalClusterer(device="cuda")
+        t = time.perf_counter()
+        emb = {"cuda": card.embed_dataset(dataset)}
+        embed_dataset_s = time.perf_counter() - t
+        t = time.perf_counter()
+        emb["cpu"] = HierarchicalClusterer(device="cpu").embed_dataset(dataset)
+        cpu_s = time.perf_counter() - t
+        err = np.abs(emb["cuda"] - emb["cpu"])
+        fail_unless(err[:EMBED_CHECK].max() <= EMBED_ATOL,
+                    f"embeddings: card vs CPU {err[:EMBED_CHECK].max()}")
+        pixels = torch.as_tensor(dataset._batch_pixels(dataset.records),
+                                 device="cuda")
+        flip = torch.as_tensor([r.flip for r in dataset.records],
+                               device="cuda")
+        images = preprocess_pyramid(pixels, flip)[256]
+        card.embedder.embed(images[:64], 32)           # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card.embedder.embed(images, 32)
+        embed_s = time.perf_counter() - t
+        del pixels, images
+        print(json.dumps({
+            "phase": "captioner", "step": "embedder", "records": n,
+            "max_abs_err_first_64": float(err[:EMBED_CHECK].max()),
+            "max_abs_err_all": float(err.max()),
+            "feature_abs_max": float(np.abs(emb["cpu"]).max()),
+            "img_per_s": n / embed_s, "embed_dataset_s": embed_dataset_s,
+            "cpu_embed_dataset_s": cpu_s, "write_jpegs_s": write_s,
+            "card": card_name}), flush=True)
+
+        # the clusterer on both embeddings: one tree, the same partitions
+        ks = determine_k_values(1000, 5)
+        t = time.perf_counter()
+        reduced = {dev: reduce_dimensionality(e, 128, "auto")
+                   for dev, e in emb.items()}
+        labels = {dev: cluster_ladder(x, ks, "agglomerative_complete")
+                  for dev, x in reduced.items()}
+        cluster_s = (time.perf_counter() - t) / 2
+        tree = same_tree(reduced["cuda"], reduced["cpu"])
+        split = [k for k, a, b in zip(ks, labels["cuda"], labels["cpu"])
+                 if adjusted_rand_index(a, b) != 1.0]
+        fail_unless(not split, f"card and CPU partitions differ at k {split}")
+        renumbered = [k for k, a, b in zip(ks, labels["cuda"], labels["cpu"])
+                      if not np.array_equal(a, b)]
+        ari = {k: {name: adjusted_rand_index(lab, np.repeat(f, 2))
+                   for name, f in factors.items()}
+               for k, lab in zip(ks, labels["cuda"])}
+        print(json.dumps({"phase": "captioner", "step": "clusterer",
+                          "ks": ks, "partitions_equal_cpu": True,
+                          "labels_equal_cpu": not renumbered,
+                          "renumbered_at_k": renumbered, **tree,
+                          "clusters": [int(lab.max()) + 1
+                                       for lab in labels["cuda"]],
+                          "ari": ari, "seconds": cluster_s,
+                          "card": card_name}), flush=True)
+
+        def run(step: str, argv: list):
+            for c in counters.values():
+                c.launches = 0
+            t = time.perf_counter()
+            _, state, history = pretrain.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            counts = {name: c.launches for name, c in counters.items()}
+            want = {name: 0 for name in counters}
+            want.update(damsm_similarity=16, damsm_similarity_bwd_square=32)
+            fail_unless(state.step == 16, f"{step}: {state.step} steps")
+            fail_unless(counts == want, f"{step}: launches {counts}, "
+                        f"expected {want}")
+            fail_unless(all(map(math.isfinite, history))
+                        and len(set(history)) > 1, f"{step}: loss {history}")
+            for name, k in counts.items():
+                total[name] = total.get(name, 0) + k
+            print(json.dumps({"phase": "captioner", "step": step,
+                              "steps": state.step, "seconds": seconds,
+                              "launches": counts, "losses": history,
+                              "card": card_name}), flush=True)
+
+        caps = os.path.join(d, "caps.json")
+        common = ["--data-root", corpus, "--stream", "--epochs", "1",
+                  "--batch-size", "64", "--captions-path", caps,
+                  "--image-dir", os.path.join(d, "img")]
+        run("cli_cluster_stream", [*common, "--cluster", "--checkpoint-dir",
+                                   os.path.join(d, "ckpt_cluster")])
+        with open(caps) as f:
+            mapping = json.load(f)
+        fail_unless(sorted(mapping) == sorted(r.fpath
+                                              for r in dataset.records),
+                    f"captions JSON: {len(mapping)} records")
+        finest = sorted({c[-1] for c, _ in mapping.values()})
+        for fpath, (caption, class_id) in mapping.items():
+            fail_unless([tok.split("c")[0] for tok in caption]
+                        == [f"k{k}" for k in ks]
+                        and class_id == finest.index(caption[-1]),
+                        f"captions JSON: {fpath} {caption} {class_id}")
+        same = all(mapping[r.fpath][0] == [f"k{k}c{lab[i]}" for k, lab in
+                                           zip(ks, labels["cuda"])]
+                   for i, r in enumerate(dataset.records))
+        print(json.dumps({"phase": "captioner", "step": "captions_json",
+                          "records": len(mapping), "tokens": len(ks),
+                          "classes": len(finest),
+                          "equal_to_the_embedder_check": same,
+                          "card": card_name}), flush=True)
+        run("cli_stream_from_json", [*common, "--checkpoint-dir",
+                                     os.path.join(d, "ckpt_json")])
+    return total
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -1553,9 +1810,13 @@ def main() -> int:
         for name in ("PIL", "matplotlib", "sklearn")}}), flush=True)
     loop_launches = loops_phase(torch, card_name, bare_gan_rate)
     lap("loops")
+    captioner_launches = captioner_phase(torch, card_name)
+    lap("captioner")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
-    # launches summed over every path: serving, pretrain, GAN step, loops
-    for counted in (damsm_launches, gan_launches, loop_launches):
+    # launches summed over every path: serving, pretrain, GAN step, loops,
+    # captioner
+    for counted in (damsm_launches, gan_launches, loop_launches,
+                    captioner_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 

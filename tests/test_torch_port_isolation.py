@@ -1,7 +1,9 @@
 """The port stands alone and runs where it is told to.
 
 - Nothing under attngan_torch/, nor chip_smoke.py, imports JAX, flax, optax,
-  orbax or the JAX package (the GPU machine has none of them).
+  orbax or the JAX package (the GPU machine has none of them), nor
+  scikit-learn outside the two reducers that are its own; the native JPEG
+  loader builds from the port's own copy of its source.
 - resolve_device() means the GPU, raises without one, and gives the CPU only
   on request.
 - The CLI serves at tiny dims on the CPU, and chip_smoke.py refuses to run
@@ -64,8 +66,63 @@ def test_port_imports_nothing_of_jax():
             "attngan_torch/train/loops.py",
             "attngan_torch/cli/pretrain.py",
             "attngan_torch/cli/train.py",
-            "attngan_torch/cli/infer.py"} <= set(bad)
+            "attngan_torch/cli/infer.py",
+            "attngan_torch/models/resnet.py",
+            "attngan_torch/data/clusterer.py",
+            "attngan_torch/data/umap_native.py",
+            "attngan_torch/data/native_loader.py",
+            "attngan_torch/data/streaming.py",
+            "attngan_torch/data/captioned.py"} <= set(bad)
     assert not {f: m for f, m in bad.items() if m}
+
+
+def _sklearn_imports(path):
+    """(enclosing function or None, imported name) of each scikit-learn
+    import in ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                names = [child.module]
+            found.extend((func, n) for n in names
+                         if n.split(".")[0] == "sklearn")
+            visit(child, func)
+
+    visit(tree, None)
+    return found
+
+
+def test_port_needs_no_sklearn_and_ships_its_native_source():
+    """The GPU machine has no scikit-learn: no port module imports it at
+    module level, and the only imports are the lazy ones of the reducers
+    that are scikit-learn's own (spectral, tsne). The native JPEG loader's
+    source is the port's own copy."""
+    files = glob.glob(os.path.join(REPO, "attngan_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    found = {os.path.relpath(f, REPO): _sklearn_imports(f) for f in files}
+    assert {f: i for f, i in found.items() if i} == {
+        "attngan_torch/data/clusterer.py": [
+            ("reduce_dimensionality", "sklearn.manifold"),
+            ("reduce_dimensionality", "sklearn.manifold")]}
+    native = os.path.join(REPO, "attngan_torch", "native")
+    assert sorted(f for f in os.listdir(native) if f != "build") == \
+        ["jpeg_loader.cpp"]
+    with open(os.path.join(native, "jpeg_loader.cpp")) as f:
+        source = f.read()
+    assert "attngan_tpu" not in source and 'extern "C"' in source
+    from attngan_torch.data import native_loader
+
+    assert native_loader.SOURCE == os.path.join(native, "jpeg_loader.cpp")
+    assert native_loader.BUILD_DIR == os.path.join(native, "build")
 
 
 def test_resolve_device_means_the_gpu(monkeypatch):
@@ -135,5 +192,5 @@ def test_pyproject_ships_the_port():
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         tool = tomllib.load(f)["tool"]["setuptools"]
     assert "attngan_torch*" in tool["packages"]["find"]["include"]
-    assert {"csrc/*.cu", "csrc/*.cuh"} <= set(
+    assert {"csrc/*.cu", "csrc/*.cuh", "native/*.cpp"} <= set(
         tool["package-data"]["attngan_torch"])

@@ -17,7 +17,9 @@
 - The CLI chain pretrain -> train -> infer (--swap, --all-stages,
   --save-attention, --benchmark) runs in a process where Pillow,
   matplotlib and scikit-learn cannot be imported, and writes every file the
-  JAX CLIs write; the flags of later slices are refused.
+  JAX CLIs write; the flags of later slices are refused; without
+  --checkpoint, cli.infer serves <checkpoint dir>/gan's newest step, or
+  random weights where there is none.
 """
 
 import json
@@ -315,10 +317,46 @@ def test_infer_refuses_a_contradicting_shape_flag(tmp_path, capsys):
         infer.main([*args, "--captions-path", str(other)])
 
 
+@pytest.mark.parametrize("present", [True, False],
+                         ids=["restores", "random_weights"])
+def test_infer_defaults_to_the_gan_checkpoint_dir(tmp_path, monkeypatch,
+                                                  capsys, present):
+    """Without --checkpoint, cli.infer serves the newest step of
+    <checkpoint dir>/gan, where cli.train writes, and random weights (with
+    a warning) only where there is none, as the JAX CLI does."""
+    from attngan_torch.core.config import Config
+    from attngan_torch.train.checkpoint import save_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(Config, "CHECKPOINT_DIR", "checkpoints")
+    ds = _dataset()
+    ds.build_vocab()
+    ds.save_captions_and_class_ids("caps.json")
+    if present:
+        state = GanTrainer(GAN, ds.vocab.n_words, device="cpu").init_state(3)
+        save_checkpoint("checkpoints/gan", state, 5, config=GAN)
+    args = ["--captions-path", "caps.json", "--device", "cpu",
+            "--image-names", "00001", "--gf-dim", "4", "--emb-dim", "16",
+            "--seq-len", "4"]
+    got = read_png(infer.main([*args, "--out", "default"])[0])
+    out = capsys.readouterr().out
+    if present:
+        ckpt = os.path.join(str(tmp_path), "checkpoints", "gan",
+                            "step_00000005")
+        assert f"restored {ckpt}" in out and "WARNING" not in out
+        want = read_png(infer.main([*args, "--out", "explicit",
+                                    "--checkpoint", "checkpoints/gan"])[0])
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert ("WARNING: no checkpoint found in checkpoints/gan; using "
+                "random weights") in out and "restored" not in out
+        assert got.shape == (256, 256, 3)
+
+
 @pytest.mark.parametrize("cli,flag", [
-    (pretrain, "--cluster"), (pretrain, "--cache-features"),
-    (pretrain, "--pretrained-cnn"), (pretrain, "--max-vocab-size"),
-    (train, "--stream"),
+    (pretrain, "--superbatch"), (pretrain, "--cache-features"),
+    (pretrain, "--pretrained-cnn"), (pretrain, "--trunk-int8"),
+    (infer, "--export"),
     (train, "--mesh-shape"), (infer, "--int8")])
 def test_flags_of_later_slices_are_refused(cli, flag, capsys):
     with pytest.raises(SystemExit):
