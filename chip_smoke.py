@@ -84,8 +84,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    steps/s, and for the 512-image run beside its own bare windows), each
    save's seconds and MB on disk;
 8. the captioner: the port's scene corpus (512 images, seed 0) written as
-   JPEGs (Pillow, quality 95); whether the native JPEG decoder built, and
-   the corpus decoded by it and by Pillow (images/s each, their max and
+   JPEGs (Pillow, quality 95); the bundled sample photos (none there: the
+   photo-patch corpus must raise); whether the native JPEG decoder built,
+   and the corpus decoded by it and by Pillow (images/s each, their max and
    mean absolute difference, the mean under 6 levels an image); the 1024
    records (files and flips) embedded by the seeded ResNet-18 on the card
    in fp32 (TF32 off; img/s) and on the CPU, the first 64 within 1e-4;
@@ -99,8 +100,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    --data-root --cluster --stream`` at full width over the 1024 records (batch 64, 1 epoch: 16
    steps; K4 16 and K5 32 launches, every other kernel 0; a finite loss
    that moves; a captions JSON of every record with one token per k),
-   and ``cli.pretrain --stream`` again from that JSON, with the same
-   launch counts;
+   and ``cli.pretrain`` again from that JSON, streamed and then eagerly
+   decoded, with the same launch counts and the same losses, each call's
+   steps/s through its loop beside the other's;
 9. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -1318,11 +1320,16 @@ def write_scene_corpus(directory: str) -> tuple:
 
 def decoders(paths, card_name: str) -> None:
     """Whether the native JPEG decoder built, and the corpus decoded by it
-    and by Pillow: images/s each, their differences."""
+    and by Pillow: images/s each, their differences; which sample photos
+    the host's packages bundle (none: the photo-patch corpus must raise)."""
     import numpy as np
 
     from attngan_torch.data import native_loader
     from attngan_torch.data.dataset import decode_image
+    from attngan_torch.data.synthetic import (
+        find_bundled_photos,
+        make_photo_patch_dataset,
+    )
 
     t = time.perf_counter()
     available = native_loader.available()
@@ -1330,6 +1337,15 @@ def decoders(paths, card_name: str) -> None:
             "native_available": available,
             "native_build_error": native_loader.build_error(),
             "native_build_s": time.perf_counter() - t}
+    photos = find_bundled_photos()
+    line["bundled_photos"] = sorted(photos)
+    if not photos:              # no scikit-learn or matplotlib sample data
+        try:
+            make_photo_patch_dataset(4)
+        except RuntimeError as e:
+            line["photo_patch_corpus"] = str(e)
+        else:
+            fail_unless(False, "photo patches made without bundled photos")
     t = time.perf_counter()
     pil = np.stack([decode_image(p) for p in paths])
     line["pil_img_per_s"] = len(paths) / (time.perf_counter() - t)
@@ -1477,13 +1493,8 @@ def captioner_phase(torch, card_name: str) -> dict:
                           "card": card_name}), flush=True)
 
         def run(step: str, argv: list):
-            for c in counters.values():
-                c.launches = 0
-            t = time.perf_counter()
-            _, state, history = pretrain.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t
-            counts = {name: c.launches for name, c in counters.items()}
+            (_, state, history), counts, line = probe.run(
+                counters, lambda: pretrain.main(argv))
             want = {name: 0 for name in counters}
             want.update(damsm_similarity=16, damsm_similarity_bwd_square=32)
             fail_unless(state.step == 16, f"{step}: {state.step} steps")
@@ -1494,37 +1505,48 @@ def captioner_phase(torch, card_name: str) -> dict:
             for name, k in counts.items():
                 total[name] = total.get(name, 0) + k
             print(json.dumps({"phase": "captioner", "step": step,
-                              "steps": state.step, "seconds": seconds,
-                              "launches": counts, "losses": history,
-                              "card": card_name}), flush=True)
+                              "steps": state.step, **line,
+                              "losses": history, "card": card_name}),
+                  flush=True)
+            return history
 
         caps = os.path.join(d, "caps.json")
-        common = ["--data-root", corpus, "--stream", "--epochs", "1",
-                  "--batch-size", "64", "--captions-path", caps,
+        common = ["--data-root", corpus, "--epochs", "1", "--batch-size",
+                  "64", "--captions-path", caps,
                   "--image-dir", os.path.join(d, "img")]
-        run("cli_cluster_stream", [*common, "--cluster", "--checkpoint-dir",
-                                   os.path.join(d, "ckpt_cluster")])
-        with open(caps) as f:
-            mapping = json.load(f)
-        fail_unless(sorted(mapping) == sorted(r.fpath
-                                              for r in dataset.records),
-                    f"captions JSON: {len(mapping)} records")
-        finest = sorted({c[-1] for c, _ in mapping.values()})
-        for fpath, (caption, class_id) in mapping.items():
-            fail_unless([tok.split("c")[0] for tok in caption]
-                        == [f"k{k}" for k in ks]
-                        and class_id == finest.index(caption[-1]),
-                        f"captions JSON: {fpath} {caption} {class_id}")
-        same = all(mapping[r.fpath][0] == [f"k{k}c{lab[i]}" for k, lab in
-                                           zip(ks, labels["cuda"])]
-                   for i, r in enumerate(dataset.records))
-        print(json.dumps({"phase": "captioner", "step": "captions_json",
-                          "records": len(mapping), "tokens": len(ks),
-                          "classes": len(finest),
-                          "equal_to_the_embedder_check": same,
-                          "card": card_name}), flush=True)
-        run("cli_stream_from_json", [*common, "--checkpoint-dir",
-                                     os.path.join(d, "ckpt_json")])
+        with LoopProbe(torch) as probe:
+            run("cli_cluster_stream", [*common, "--stream", "--cluster",
+                                       "--checkpoint-dir",
+                                       os.path.join(d, "ckpt_cluster")])
+            with open(caps) as f:
+                mapping = json.load(f)
+            fail_unless(sorted(mapping) == sorted(r.fpath
+                                                  for r in dataset.records),
+                        f"captions JSON: {len(mapping)} records")
+            finest = sorted({c[-1] for c, _ in mapping.values()})
+            for fpath, (caption, class_id) in mapping.items():
+                fail_unless([tok.split("c")[0] for tok in caption]
+                            == [f"k{k}" for k in ks]
+                            and class_id == finest.index(caption[-1]),
+                            f"captions JSON: {fpath} {caption} {class_id}")
+            same = all(mapping[r.fpath][0] == [f"k{k}c{lab[i]}" for k, lab
+                                               in zip(ks, labels["cuda"])]
+                       for i, r in enumerate(dataset.records))
+            print(json.dumps({"phase": "captioner", "step": "captions_json",
+                              "records": len(mapping), "tokens": len(ks),
+                              "classes": len(finest),
+                              "equal_to_the_embedder_check": same,
+                              "card": card_name}), flush=True)
+            # the same epoch streamed, then eagerly decoded up front: the
+            # loop's cost of decoding in its prefetch thread (the same
+            # pixels either way: the 256^2 JPEGs take no resize)
+            streamed = run("cli_stream_from_json", [
+                *common, "--stream", "--checkpoint-dir",
+                os.path.join(d, "ckpt_stream")])
+            eager = run("cli_eager_from_json", [
+                *common, "--checkpoint-dir", os.path.join(d, "ckpt_eager")])
+            fail_unless(streamed == eager, "streamed and eager epochs differ: "
+                        f"{streamed} vs {eager}")
     return total
 
 
