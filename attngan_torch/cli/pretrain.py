@@ -22,10 +22,10 @@ CLI's feature cache, superbatch, int8 and train-mode trunk options,
 refuses them.
 
 Examples:
-  python -m attngan_torch.cli.pretrain --data-root /data/bedrooms \
+  python -m attngan_torch.cli.pretrain --data-root /data/bedrooms \\
       --cluster --stream --epochs 30
   python -m attngan_torch.cli.pretrain --synthetic 128 --epochs 2
-  python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \
+  python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \\
       --epochs 1 --emb-dim 32 --image-encoder tiny --device cpu
 """
 
