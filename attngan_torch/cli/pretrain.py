@@ -14,17 +14,24 @@ loss plots to --image-dir. A synthetic run writes its captions to
 --captions-path, from which the GAN and serving phases rebuild the same
 vocabulary.
 
+The JAX CLI's pretrain options are here: --cache-features (the frozen
+trunk's features computed once, the steps trained against them),
+--superbatch K (one trunk forward for K steps), --trunk-train-mode-bn (the
+reference's train-mode trunk BatchNorm) and --pretrained-cnn (a
+torchvision Inception-v3 .pth, read by name: no conversion step).
+
 --data-root decodes images with the native JPEG loader or Pillow; the
 synthetic path needs neither Pillow nor matplotlib, and --cluster needs
 scipy but not scikit-learn (unless --reducer spectral or tsne). The JAX
-CLI's feature cache, superbatch, int8 and train-mode trunk options,
---pretrained-cnn and --mesh-shape are later slices of the port: argparse
+CLI's --trunk-int8 and --mesh-shape are later slices of the port: argparse
 refuses them.
 
 Examples:
   python -m attngan_torch.cli.pretrain --data-root /data/bedrooms \\
       --cluster --stream --epochs 30
   python -m attngan_torch.cli.pretrain --synthetic 128 --epochs 2
+  python -m attngan_torch.cli.pretrain --synthetic 512 --cache-features \\
+      --pretrained-cnn inception_v3_google.pth
   python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \\
       --epochs 1 --emb-dim 32 --image-encoder tiny --device cpu
 """
@@ -73,8 +80,20 @@ def parse_args(argv=None):
     p.add_argument("--emb-dim", type=int, default=256)
     p.add_argument("--image-encoder", default="inception_v3",
                    choices=["inception_v3", "tiny"])
+    p.add_argument("--pretrained-cnn", default="",
+                   help="torchvision Inception-v3 state_dict (.pth, loaded "
+                        "by name: the trunk has torchvision's keys)")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--cache-features", action="store_true",
+                   help="precompute frozen-trunk region features once and "
+                        "train against the cache (removes the Inception "
+                        "forward from every step)")
+    p.add_argument("--superbatch", type=int, default=1,
+                   help="amortize the frozen trunk: run it once at "
+                        "superbatch*batch_size images, then do that many "
+                        "sequential batch_size contrastive steps (exact "
+                        "step semantics, fewer trunk launches)")
     p.add_argument("--checkpoint-dir", default=Config.CHECKPOINT_DIR)
     p.add_argument("--image-dir", default=Config.IMAGE_DIR)
     p.add_argument("--resume", action="store_true",
@@ -85,6 +104,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-every-epochs", type=int, default=1,
                    help="save a checkpoint every N epochs (and the last)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trunk-train-mode-bn", action="store_true",
+                   help="reproduce the reference quirk: frozen Inception "
+                        "trunk runs with train-mode BatchNorm (the reference "
+                        "never calls eval() on it, pretrain_damsm.py:59-73)")
     p.add_argument("--log-every", type=int, default=50,
                    help="print loss + steps/s every N steps")
     p.add_argument("--profile", action="store_true",
@@ -103,6 +126,11 @@ def main(argv=None):
     from attngan_torch.data.synthetic import make_synthetic_dataset
     from attngan_torch.train.loops import run_damsm_training
 
+    if args.stream and args.cache_features:
+        raise SystemExit(
+            "--stream and --cache-features are incompatible: the feature "
+            "cache holds ~300 KB/image in host RAM, which defeats the "
+            "streaming loader's bounded-memory guarantee; drop one")
     if args.synthetic:
         dataset = make_synthetic_dataset(args.synthetic,
                                          with_captions=not args.cluster)
@@ -131,13 +159,21 @@ def main(argv=None):
     cfg = DamsmConfig(emb_dim=args.emb_dim, batch_size=args.batch_size,
                       lr=args.lr, epochs=args.epochs,
                       image_encoder=args.image_encoder,
-                      compute_dtype=args.compute_dtype)
+                      compute_dtype=args.compute_dtype,
+                      cache_region_features=args.cache_features,
+                      superbatch=args.superbatch,
+                      trunk_train_mode_bn=args.trunk_train_mode_bn)
     run_cfg = RunConfig(seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                         log_every=args.log_every,
                         image_dir=args.image_dir, profile=args.profile,
                         checkpoint_every_epochs=args.checkpoint_every_epochs)
+    pretrained = None
+    if args.pretrained_cnn:
+        from attngan_torch.convert import load_pretrained_trunk
+
+        pretrained = load_pretrained_trunk(args.pretrained_cnn)
     return run_damsm_training(cfg, run_cfg, dataset, resume=args.resume,
-                              device=args.device)
+                              device=args.device, pretrained_cnn=pretrained)
 
 
 if __name__ == "__main__":

@@ -45,6 +45,12 @@ A flattened ``GanState`` is read by ``load_gan_flat``: ``gen_params`` /
 ``cnn_stats/trunk/...`` (the whole frozen image encoder) and ``step``.
 Its PRNG key is not part of the input either.
 tools/convert_torch_weights.py is the trunk mapping in the other direction.
+
+A pretrained trunk (``--pretrained-cnn``) is read from the torchvision
+Inception-v3 ``.pth`` itself by ``load_pretrained_trunk``: the port's trunk
+has torchvision's keys, so only the classifier heads and the BN counters
+are dropped. The JAX CLI reads the flax msgpack that
+tools/convert_torch_weights.py makes from the same file.
 """
 
 from __future__ import annotations
@@ -463,3 +469,28 @@ def load_resnet_flat(flat: Mapping[str, np.ndarray], model: torch.nn.Module
     """Fill a ResNet18 in place; raises on any key missing or left over on
     either side, or a shape that disagrees."""
     model.load_state_dict(convert_resnet_flat(flat), strict=True)
+
+
+# ------------------------------------------------- torchvision Inception-v3
+
+_TORCHVISION_HEADS = ("AuxLogits.", "fc.")
+
+
+def torchvision_trunk_state_dict(state_dict: Mapping[str, torch.Tensor]
+                                 ) -> Dict[str, torch.Tensor]:
+    """A torchvision Inception-v3 ``state_dict`` -> the port trunk's
+    (models/cnn_encoder.py::InceptionV3Trunk): ``AuxLogits.*``, ``fc.*``
+    and every BN's ``num_batches_tracked`` dropped, every other entry kept
+    as it is. A strict ``load_state_dict`` then refuses a key that is
+    missing, left over or of another shape."""
+    return {k: v for k, v in state_dict.items()
+            if not k.startswith(_TORCHVISION_HEADS)
+            and not k.endswith(".num_batches_tracked")}
+
+
+def load_pretrained_trunk(path: str) -> Dict[str, torch.Tensor]:
+    """The trunk state_dict of the torchvision Inception-v3 ``.pth`` at
+    ``path`` (a ``torch.load``-able state_dict, weights only), for
+    ``DamsmTrainer.init_state(pretrained_cnn=)``."""
+    return torchvision_trunk_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))

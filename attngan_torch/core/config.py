@@ -5,11 +5,10 @@ The port keeps its own copies of the JAX package's ``GanConfig``,
 instead of importing them: the port imports nothing of that package. Field
 names and model-shape defaults are the same, so a checkpoint's recorded
 config reads the same in both. Only the fields the port uses are copied:
-``DamsmConfig``'s feature cache, int8 trunk, train-mode trunk BN and
-superbatch, and ``RunConfig``'s ``mesh_shape``, each come with their own
-slice. ``GanConfig``'s ``remat_coupling`` and ``reuse_gen_forward`` have no
-counterpart: they choose how XLA schedules the same step, and autograd
-keeps the one generator forward's graph.
+``DamsmConfig``'s int8 trunk and ``RunConfig``'s ``mesh_shape`` come with
+their own slices. ``GanConfig``'s ``remat_coupling`` and
+``reuse_gen_forward`` have no counterpart: they choose how XLA schedules
+the same step, and autograd keeps the one generator forward's graph.
 """
 
 from __future__ import annotations
@@ -45,6 +44,17 @@ class DamsmConfig:
     # kernels (ops/cuda_damsm.py) are the words loss on the GPU; False runs
     # the plain vectorised form, differentiated by autograd.
     fused_similarity: bool = True
+    # the frozen trunk's features computed once per image and trained
+    # against from host memory (fp16); the trunk and its inputs never change
+    cache_region_features: bool = False
+    # the reference's quirk: its frozen trunk is never put in eval(), so BN
+    # normalises by batch statistics and moves the running averages
+    trunk_train_mode_bn: bool = False
+    # one eval trunk forward at superbatch * batch_size images, then that
+    # many sequential batch_size steps: the same steps, one trunk launch
+    # sequence instead of K. Incompatible with trunk_train_mode_bn; ignored
+    # on the cached path.
+    superbatch: int = 1
 
 
 @dataclass(frozen=True)

@@ -251,36 +251,57 @@ class Dataset:
     def device_batch(host_batch: Dict[str, object],
                      device: str | torch.device) -> Dict[str, torch.Tensor]:
         """Move a host batch (numpy arrays, or the tensors of
-        ``pinned_batch``) to ``device`` and build the image pyramid there:
-        tokens, class_ids and img64/128/256 (NHWC fp32 in [-1, 1]) on the
-        device. ``lengths`` stay on the host, where the BiLSTM's packing
-        reads them: on the device they would cost a copy back and a stream
-        drain every step."""
+        ``pinned_batch``) to ``device``: tokens, class_ids and either the
+        image pyramid built there from its pixels (img64/128/256, NHWC fp32
+        in [-1, 1]) or, for a batch of cached trunk features, its
+        trunk_regions and trunk_pooled rows as they are. ``lengths`` stay
+        on the host, where the BiLSTM's packing reads them: on the device
+        they would cost a copy back and a stream drain every step."""
         device = torch.device(device)
 
         def put(key):
             return torch.as_tensor(host_batch[key]).to(device,
                                                        non_blocking=True)
 
-        pyramid = preprocess_pyramid(put("pixels"), put("flip"))
-        return {"tokens": put("tokens"),
-                "lengths": torch.as_tensor(host_batch["lengths"]),
-                "class_ids": put("class_ids"),
-                "img64": pyramid[64], "img128": pyramid[128],
-                "img256": pyramid[256]}
+        out = {"tokens": put("tokens"),
+               "lengths": torch.as_tensor(host_batch["lengths"]),
+               "class_ids": put("class_ids")}
+        if "trunk_regions" in host_batch:
+            out.update(trunk_regions=put("trunk_regions"),
+                       trunk_pooled=put("trunk_pooled"))
+        else:
+            pyramid = preprocess_pyramid(put("pixels"), put("flip"))
+            out.update(img64=pyramid[64], img128=pyramid[128],
+                       img256=pyramid[256])
+        return out
 
 
 def pinned_batch(host_batch: Dict[str, np.ndarray],
-                 device: str | torch.device) -> Dict[str, torch.Tensor]:
+                 device: str | torch.device,
+                 cache: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """The arrays ``device_batch`` copies, as host tensors, in page-locked
     memory when ``device`` is a GPU so that its copies run asynchronously
     (the prefetch thread's transform; ``lengths`` stay ordinary host
-    memory)."""
+    memory). With ``cache`` ({"regions", "pooled"}: host tensors of
+    cached trunk features, one row a record) the batch carries the rows of
+    its ``indices`` as trunk_regions / trunk_pooled, gathered straight into
+    the page-locked buffers, in place of its pixels."""
     pin = torch.device(device).type == "cuda"
+    keys = ("tokens", "lengths", "class_ids")
+    if cache is None:
+        keys += ("pixels", "flip")
     out = {}
-    for key in ("tokens", "lengths", "class_ids", "pixels", "flip"):
+    for key in keys:
         t = torch.from_numpy(np.ascontiguousarray(host_batch[key]))
         out[key] = t.pin_memory() if pin and key != "lengths" else t
+    if cache is not None:
+        idx = torch.from_numpy(np.asarray(host_batch["indices"], np.int64))
+        for key, rows in (("trunk_regions", cache["regions"]),
+                          ("trunk_pooled", cache["pooled"])):
+            out[key] = torch.empty((len(idx), *rows.shape[1:]),
+                                   dtype=rows.dtype, pin_memory=pin)
+            torch.index_select(rows, 0, idx, out=out[key])
     return out
 
 

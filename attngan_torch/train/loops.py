@@ -10,8 +10,10 @@ A prefetch thread assembles each epoch's host batches in page-locked
 memory; the main thread copies them to the device and builds the pyramid
 on its own stream (data/prefetch.py says why). The steps' metrics stay on
 the device until a log line or the epoch's end reads them, so that the
-host does not wait for the device inside an epoch. The JAX loop's
-feature-cache and superbatch branches wait for their slice.
+host does not wait for the device inside an epoch. With the feature cache
+the thread gathers each batch's cached trunk rows instead of its pixels;
+with a superbatch it concatenates K batches after the degenerate-batch
+skip, and the loop unrolls the K steps' metrics into its history.
 """
 
 from __future__ import annotations
@@ -69,23 +71,55 @@ def _skip_batch(host_batch, batch_size: int) -> bool:
             or host_batch["tokens"].shape[0] < batch_size)
 
 
+def _group_superbatches(batches, k: int):
+    """Concatenate K consecutive host batches into one K*B superbatch
+    (cfg.superbatch; a leftover group of < K batches at epoch end is
+    dropped, like the reference drops ragged batches). Grouping happens
+    AFTER the degenerate-batch skip, so the K inner steps are exactly the
+    steps the plain loop would have taken. Warns when batches are dropped
+    — and an epoch with fewer than K valid batches would otherwise train
+    ZERO steps silently."""
+    group, yielded = [], 0
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield {key: np.concatenate([g[key] for g in group], axis=0)
+                   for key in group[0]}
+            group = []
+            yielded += 1
+    if group:
+        print(f"superbatch={k}: dropped {len(group)} leftover batch(es) "
+              f"this epoch ({yielded} superbatch steps ran)"
+              + ("" if yielded else
+                 " — the epoch trained ZERO steps; lower --superbatch or "
+                 "add data"))
+
+
 def _epoch_batches(dataset: Dataset, batch_size: int, seq_len: int,
-                   seed: int, device: torch.device):
+                   seed: int, device: torch.device,
+                   cache: Optional[Dict[str, torch.Tensor]] = None,
+                   superbatch: int = 1):
     """One epoch's batches on ``device``, their host side prepared by the
-    prefetch thread."""
+    prefetch thread: K of them concatenated where ``superbatch`` = K > 1,
+    and the rows of ``cache`` (host tensors of cached trunk features) in
+    place of the pixels where it is given."""
     batches = (b for b in dataset.iter_batches(batch_size, seq_len, seed=seed)
                if not _skip_batch(b, batch_size))
-    for host in prefetch(batches, lambda b: pinned_batch(b, device)):
+    if superbatch > 1:
+        batches = _group_superbatches(batches, superbatch)
+    for host in prefetch(batches, lambda b: pinned_batch(b, device, cache)):
         yield dataset.device_batch(host, device)
 
 
 def _read_back(pending: List[Dict[str, torch.Tensor]],
                into: Dict[str, list]) -> None:
-    """Append the pending steps' metrics (0-d device tensors) to ``into``'s
-    lists as floats, one copy per metric, and clear ``pending``."""
+    """Append the pending steps' metrics (device tensors: 0-d for a step,
+    (K,) for a superbatch's K steps) to ``into``'s lists as floats, one
+    copy per metric, and clear ``pending``."""
     if pending:
         for key in pending[0]:
-            into[key].extend(torch.stack([m[key] for m in pending]).tolist())
+            into[key].extend(torch.cat([m[key].reshape(-1)
+                                        for m in pending]).tolist())
         pending.clear()
 
 
@@ -97,9 +131,11 @@ def run_damsm_training(
     trainer: Optional[DamsmTrainer] = None,
     resume: bool = False,
     device: str | torch.device | None = None,
+    pretrained_cnn: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """DAMSM pretraining for ``cfg.epochs`` epochs (the GPU unless
-    ``device`` says otherwise). Returns (trainer, state, loss history)."""
+    ``device`` says otherwise), from a pretrained trunk state_dict where
+    ``pretrained_cnn`` is given. Returns (trainer, state, loss history)."""
     dataset.build_vocab()
     seq_len = max(dataset.max_seqlen, 1)
     if trainer is None:
@@ -107,28 +143,52 @@ def run_damsm_training(
                                seq_len=seq_len, device=device)
     start_epoch = 0
     if state is None:
-        state = trainer.init_state(run_cfg.seed)
+        state = trainer.init_state(run_cfg.seed, pretrained_cnn=pretrained_cnn)
         state, start_epoch = _maybe_resume(
             state, os.path.join(run_cfg.checkpoint_dir, "damsm"), resume)
+    cache = None
+    if cfg.cache_region_features:
+        print("precomputing frozen-trunk region features for "
+              f"{len(dataset.records)} images ...")
+        cache = {k: torch.from_numpy(v) for k, v in
+                 trainer.precompute_trunk_features(state, dataset).items()}
 
     metrics: Dict[str, list] = defaultdict(list)
     history = metrics["loss"]
     pending: List[Dict[str, torch.Tensor]] = []
+    steps = last_logged = 0
     timer = StepTimer()
     profiler = StepWindowProfiler(
         os.path.join(run_cfg.checkpoint_dir, "profile_damsm"),
         enabled=run_cfg.profile)
+    superbatch = cfg.superbatch if cache is None else 1
+    if superbatch > 1:
+        per_epoch = len(dataset.records) // cfg.batch_size
+        if per_epoch < superbatch:
+            raise ValueError(
+                f"superbatch={superbatch} needs at least {superbatch} full "
+                f"batches per epoch; this dataset yields at most {per_epoch}"
+                f" (batch_size={cfg.batch_size})")
+    step_fn = (trainer.train_step_cached if cache is not None
+               else trainer.train_step_super if superbatch > 1
+               else trainer.train_step)
     if start_epoch >= cfg.epochs:
         print(f"--resume: checkpoint already at epoch {start_epoch} >= "
               f"--epochs {cfg.epochs}; nothing to train")
     for epoch in range(start_epoch + 1, cfg.epochs + 1):
         for batch in _epoch_batches(dataset, cfg.batch_size, seq_len,
-                                    run_cfg.seed + epoch, trainer.device):
-            state, m = trainer.train_step(state, batch)
+                                    run_cfg.seed + epoch, trainer.device,
+                                    cache, superbatch):
+            state, m = step_fn(state, batch)
             pending.append({"loss": m["loss"]})
-            timer.tick()
+            # a superbatch call is K steps: the timer counts all K, the
+            # profiler window counts calls
+            steps += superbatch
+            timer.tick(superbatch)
             profiler.tick()
-            if (len(history) + len(pending)) % run_cfg.log_every == 0:
+            # once per log_every steps, also where K does not divide it
+            if steps - last_logged >= run_cfg.log_every:
+                last_logged = steps
                 _read_back(pending, metrics)
                 print(f"epoch {epoch} step {len(history)} "
                       f"loss {history[-1]:.3f} "

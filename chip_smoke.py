@@ -103,7 +103,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    and ``cli.pretrain`` again from that JSON, streamed and then eagerly
    decoded, with the same launch counts and the same losses, each call's
    steps/s through its loop beside the other's;
-9. one ``{"kernels": [...]}`` line (launches summed over every path's
+9. the pretrain options at full width (DamsmConfig defaults, a seeded
+   Inception-v3 trunk written as a torchvision .pth with num_batches_tracked,
+   AuxLogits and fc entries), through ``cli.pretrain``'s ``main(argv)`` over
+   512 synthetic images at batch 64 (made once): ``--pretrained-cnn`` (the
+   trained state's trunk equal to the file's bit for bit), 2 epochs plain,
+   with ``--cache-features`` (the precompute's seconds, the cache's MB, all
+   finite; losses within 1e-2 relative of the plain run's) and with
+   ``--superbatch 4`` (its first call's 4 losses within 1e-3; in fp32,
+   plain and superbatch again, all 16 within 1e-3), 1 epoch with
+   ``--trunk-train-mode-bn`` (every trunk running statistic moved, the
+   saved ``cnn.pt`` equal to the state, and ``load_damsm_encoders``, which
+   ``cli.train --damsm-checkpoint`` calls, reading them bit for bit); each
+   call with K4 once and K5 twice a step and every other kernel 0; then
+   ``iter_attention_maps`` over the 512 images (maps/s; each real word's
+   map sums to 1 within 1e-5; the first 4 in fp32 within 1e-4 of the
+   CPU's) and ``populate_attention_maps`` (8 PNGs read back); and the
+   steps/s of the plain, cached, superbatch (K = 4) and train-mode-BN
+   steps at batch 64, in turns (with ``--profile``: a 12-step window of
+   each under torch.profiler);
+10. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -183,6 +202,20 @@ NATIVE_MAD = 6.0      # native vs Pillow decode, mean levels an image
 # (~1e-6: 2.4e-6 on features up to 2.4, H100 80GB HBM3 at 700 W); merges
 # closer than that may come in either order
 HEIGHT_ATOL = 1e-4
+# phase 9: cli.pretrain's options over 512 synthetic images at batch 64
+OPTIONS_IMAGES = 512
+# losses against the plain run's over the same batches: the cached run
+# trains on fp16 features (JAX states an O(1e-3) relative shift for an fp32
+# trunk; a bf16 value is exact in fp16 above 2^-14); the superbatch's
+# trunk runs at 256 rows, where cuDNN rounds the bf16 features otherwise
+# than at 64 (its superbatch_features line says how far): the first step's
+# loss moves by ~5e-6 and 16 steps of training amplify it (0.138 on an H100
+# 80GB HBM3 at 700 W), so bf16 is held over the first superbatch call and
+# fp32 over all 16 steps
+CACHED_RTOL, SUPER_RTOL = 1e-2, 1e-3
+# attention maps: each real word's map sums to 1 (an fp32 softmax over 289
+# regions); the card's fp32 maps against the CPU's at batch 4
+MAP_SUM_ATOL, MAP_CPU_ATOL = 1e-5, 1e-4
 
 
 def card() -> str:
@@ -1550,6 +1583,340 @@ def captioner_phase(torch, card_name: str) -> dict:
     return total
 
 
+def write_pretrained_trunk(torch, path: str) -> dict:
+    """A seeded Inception-v3 trunk (He-initialised convs, BN weights,
+    biases and running statistics drawn away from 1 and 0, so that a
+    misplaced entry shows) saved at ``path`` as a torchvision state_dict:
+    with every BN's ``num_batches_tracked``, ``AuxLogits.*`` and ``fc.*``.
+    Returns the trunk's own state_dict (the port's keys)."""
+    from attngan_torch.models.cnn_encoder import InceptionV3Trunk
+
+    gen = torch.Generator().manual_seed(11)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        trunk = InceptionV3Trunk().state_dict()
+    draws = {"running_mean": lambda v: v.normal_(0, 0.1, generator=gen),
+             "running_var": lambda v: v.uniform_(0.5, 1.5, generator=gen),
+             "bn.weight": lambda v: v.uniform_(0.5, 1.5, generator=gen),
+             "bn.bias": lambda v: v.normal_(0, 0.1, generator=gen)}
+    torchvision = {}
+    for key, value in trunk.items():
+        for suffix, draw in draws.items():
+            if key.endswith(suffix):
+                draw(value)
+        torchvision[key] = value
+        if key.endswith("bn.running_var"):
+            torchvision[key.replace("running_var", "num_batches_tracked")] = \
+                torch.tensor(0)
+    torchvision.update({"AuxLogits.conv0.conv.weight": torch.zeros(128, 768,
+                                                                   1, 1),
+                        "fc.weight": torch.zeros(1000, 2048),
+                        "fc.bias": torch.zeros(1000)})
+    torch.save(torchvision, path)
+    return {k: v.clone() for k, v in trunk.items()}
+
+
+def options_throughput(torch, trunk: dict, card_name: str) -> None:
+    """The bf16 trunk's features of the 4 batches at 256 rows (the
+    superbatch's forward) against those at 64 (max difference, share of
+    elements that differ); then steps/s at batch 64 (vocabulary 1000, 8
+    words) of the four step forms in turns, 6 rounds of a 12-step window
+    each, their inputs on the card: plain, cached (the features of the
+    same batches in fp16),
+    superbatch (K = 4: 3 calls a window) on one state, and train-mode
+    trunk BN on its own state from the same seed (its steps move the
+    statistics, after which the others would refold their trunk)."""
+    import numpy as np
+
+    from attngan_torch.core.config import DamsmConfig, replace
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    k = 4
+    rng = np.random.default_rng(9)
+    batches = [damsm_batch(torch, rng, DAMSM_BATCH) for _ in range(k)]
+    cfg = DamsmConfig(batch_size=DAMSM_BATCH)
+    plain = DamsmTrainer(cfg, VOCAB, DAMSM_SEQ)
+    sup = DamsmTrainer(replace(cfg, superbatch=k), VOCAB, DAMSM_SEQ)
+    bn = DamsmTrainer(replace(cfg, trunk_train_mode_bn=True), VOCAB,
+                      DAMSM_SEQ)
+    state = plain.init_state(seed=0, pretrained_cnn=trunk)
+    bn_state = bn.init_state(seed=0, pretrained_cnn=trunk)
+    cached = []
+    for batch in batches:
+        regions, pooled = plain._eval_trunk_forward(state, batch["img256"])
+        cached.append({**batch, "trunk_regions": regions.half(),
+                       "trunk_pooled": pooled.half()})
+    superbatch = {key: torch.cat([b[key] for b in batches])
+                  for key in batches[0]}
+    # what the superbatch's trunk reads: its features of 256 rows against
+    # the same images' at 64
+    big = plain._eval_trunk_forward(state, superbatch["img256"])
+    small = [torch.cat(f) for f in zip(*[
+        plain._eval_trunk_forward(state, b["img256"]) for b in batches])]
+    line = {}
+    for key, big, small in zip(("regions", "pooled"), big, small):
+        line[key] = {"max_abs_diff": float((big - small).abs().max()),
+                     "share_differing": float((big != small).float().mean()),
+                     "abs_max": float(small.abs().max())}
+    print(json.dumps({"phase": "pretrain_options", "step":
+                      "superbatch_features_256_vs_64_rows", **line,
+                      "card": card_name}), flush=True)
+    window = 12
+    paths = (
+        ("plain", lambda: [plain.train_step(state, batches[i % k])
+                           for i in range(window)]),
+        ("cached", lambda: [plain.train_step_cached(state, cached[i % k])
+                            for i in range(window)]),
+        ("superbatch_4", lambda: [sup.train_step_super(state, superbatch)
+                                  for _ in range(window // k)]),
+        ("train_mode_bn", lambda: [bn.train_step(bn_state, batches[i % k])
+                                   for i in range(window)]))
+    for _, fn in paths:
+        fn()
+    torch.cuda.synchronize()
+    rates = {label: [] for label, _ in paths}
+    for round_ in range(6):
+        for label, fn in paths[round_ % 4:] + paths[:round_ % 4]:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[label].append(window / (time.perf_counter() - start))
+    for label, windows in rates.items():
+        median = statistics.median(windows)
+        print(json.dumps({
+            "phase": "pretrain_options", "step": "throughput",
+            "path": label, "batch": DAMSM_BATCH, "steps_per_s": median,
+            "windows": windows,
+            "spread_pct": 100 * (max(windows) - min(windows)) / median,
+            "card": card_name}), flush=True)
+    if "--profile" in sys.argv[1:]:
+        for label, fn in paths:
+            stats = profile_calls(torch, fn, calls=1)
+            print(json.dumps({"phase": "profile", "path": label,
+                              "batch": DAMSM_BATCH, "steps_per_call": window,
+                              **stats, "card": card_name}), flush=True)
+
+
+def attention_maps(torch, trunk: dict, dataset, folder: str,
+                   card_name: str) -> None:
+    """iter_attention_maps over the dataset at full width (bf16 trunk,
+    batch 64): maps/s, each real word's map summing to 1; the first batch
+    in fp32 at batch 4 against the CPU's; populate_attention_maps' PNGs
+    read back."""
+    import numpy as np
+
+    from attngan_torch.core.config import DamsmConfig
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+    from attngan_torch.utils.imaging import read_png
+
+    vocab, seq = dataset.vocab.n_words, dataset.max_seqlen
+    trainer = DamsmTrainer(DamsmConfig(), vocab, seq)
+    state = trainer.init_state(seed=0, pretrained_cnn=trunk)
+    list(trainer.iter_attention_maps(state, dataset, DAMSM_BATCH,
+                                     limit=DAMSM_BATCH))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    maps = list(trainer.iter_attention_maps(state, dataset, DAMSM_BATCH))
+    seconds = time.perf_counter() - t
+    n = len(dataset.records) // DAMSM_BATCH * DAMSM_BATCH
+    fail_unless(len(maps) == n, f"attention maps: {len(maps)} of {n}")
+    fail_unless(all(m.shape == (seq, 17, 17) and m.dtype == np.float32
+                    for m in maps), f"attention maps: {maps[0].shape}")
+    sums = np.stack([m.sum(axis=(1, 2)) for m in maps])
+    real = np.array([[i < len(r.caption) for i in range(seq)]
+                     for r in dataset.records[:n]])
+    sum_err = float(np.abs(sums[real] - 1.0).max())
+    fail_unless(sum_err <= MAP_SUM_ATOL, f"attention maps sum to 1 +- "
+                f"{sum_err}")
+    fp32 = {}
+    for dev in ("cuda", "cpu"):
+        t32 = DamsmTrainer(DamsmConfig(compute_dtype=""), vocab, seq,
+                           device=dev)
+        s32 = t32.init_state(seed=0, pretrained_cnn=trunk)
+        fp32[dev] = np.stack(list(t32.iter_attention_maps(
+            s32, dataset, batch_size=4, limit=4)))
+    cpu_err = float(np.abs(fp32["cuda"] - fp32["cpu"]).max())
+    fail_unless(cpu_err <= MAP_CPU_ATOL, f"attention maps: card vs CPU "
+                f"{cpu_err}")
+    written = trainer.populate_attention_maps(state, dataset, folder,
+                                              DAMSM_BATCH, limit=8)
+    pngs = sorted(os.listdir(folder))
+    fail_unless(written == 8 and pngs == [f"attn_{i:06d}.png"
+                                          for i in range(8)],
+                f"populate_attention_maps wrote {pngs}")
+    for name in pngs:
+        shape = read_png(os.path.join(folder, name)).shape
+        fail_unless(shape == (17, 17 * seq, 3), f"{name}: {shape}")
+    print(json.dumps({
+        "phase": "pretrain_options", "step": "attention_maps", "maps": n,
+        "words": seq, "seconds": seconds, "maps_per_s": n / seconds,
+        "max_sum_err": sum_err, "fp32_vs_cpu_max_abs_err": cpu_err,
+        "pngs": written, "card": card_name}), flush=True)
+
+
+def pretrain_options_phase(torch, card_name: str) -> dict:
+    """Phase 9: cli.pretrain's options at full width over 512 synthetic
+    images (see the module docstring). Returns {kernel name: launches over
+    the phase's CLI calls}."""
+    import numpy as np
+
+    from attngan_torch.cli import pretrain
+    from attngan_torch.cli.train import load_damsm_encoders
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.data import synthetic
+    from attngan_torch.train.checkpoint import (
+        diff_parts,
+        latest_checkpoint,
+        load_part,
+    )
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    counters = kernel_counters()
+    total = {}
+    # the images are made once (~6 s of host time each call would spend)
+    dataset = synthetic.make_synthetic_dataset(OPTIONS_IMAGES)
+    make_dataset = synthetic.make_synthetic_dataset
+    precompute = DamsmTrainer.precompute_trunk_features
+    caches = []
+
+    def timed_precompute(self, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache = precompute(self, *args, **kw)
+        caches.append((time.perf_counter() - t, cache))
+        return cache
+
+    synthetic.make_synthetic_dataset = lambda *a, **kw: dataset
+    DamsmTrainer.precompute_trunk_features = timed_precompute
+    try:
+        with tempfile.TemporaryDirectory() as d, LoopProbe(torch) as probe:
+            pth = os.path.join(d, "inception_v3.pth")
+            trunk = write_pretrained_trunk(torch, pth)
+            common = ["--synthetic", str(OPTIONS_IMAGES), "--batch-size",
+                      str(DAMSM_BATCH), "--epochs", "2", "--pretrained-cnn",
+                      pth, "--captions-path", os.path.join(d, "caps.json"),
+                      "--image-dir", os.path.join(d, "img")]
+
+            def run(step: str, flags: list, steps: int, extra=None):
+                (_, state, history), counts, line = probe.run(
+                    counters, lambda: pretrain.main([
+                        *common, *flags, "--checkpoint-dir",
+                        os.path.join(d, step)]))
+                want = {name: 0 for name in counters}
+                want.update(damsm_similarity=steps,
+                            damsm_similarity_bwd_square=2 * steps)
+                fail_unless(state.step == len(history) == steps,
+                            f"{step}: {state.step} steps")
+                fail_unless(counts == want, f"{step}: launches {counts}, "
+                            f"expected {want}")
+                fail_unless(all(map(math.isfinite, history))
+                            and len(set(history)) > 1,
+                            f"{step}: loss {history}")
+                for name, n in counts.items():
+                    total[name] = total.get(name, 0) + n
+                print(json.dumps({"phase": "pretrain_options", "step": step,
+                                  "steps": state.step, **line,
+                                  **(extra(state, history) if extra else {}),
+                                  "losses": history, "card": card_name}),
+                      flush=True)
+                return state, history
+
+            steps = 2 * OPTIONS_IMAGES // DAMSM_BATCH
+
+            def pretrained(state, _):
+                got = state.cnn.trunk.state_dict()
+                differ = [k for k in trunk if not torch.equal(got[k].cpu(),
+                                                              trunk[k])]
+                fail_unless(set(got) == set(trunk) and not differ,
+                            f"--pretrained-cnn: the trunk differs at "
+                            f"{differ[:5]}")
+                return {"trunk_equals_file": True, "trunk_tensors": len(got)}
+
+            _, plain = run("plain", [], steps, pretrained)
+
+            def rel(a, b):
+                return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+            def cache_line(_, history):
+                seconds, cache = caches[-1]
+                fail_unless(cache["regions"].shape == (
+                    OPTIONS_IMAGES, DAMSM_REGIONS, 768)
+                    and cache["pooled"].shape == (OPTIONS_IMAGES, 2048)
+                    and cache["regions"].dtype == np.float16,
+                    f"cache {cache['regions'].shape}")
+                fail_unless(all(np.isfinite(v).all()
+                                for v in cache.values()), "cache not finite")
+                err = rel(history, plain)
+                fail_unless(err <= CACHED_RTOL, f"cached losses: {err} "
+                            "relative off the plain run's")
+                return {"precompute_s": seconds, "cache_mb": sum(
+                            v.nbytes for v in cache.values()) / 2 ** 20,
+                        "cache_abs_max": float(np.abs(
+                            cache["regions"]).max()),
+                        "max_rel_loss_vs_plain": err}
+
+            run("cached", ["--cache-features"], steps, cache_line)
+            fail_unless(len(caches) == 1, f"{len(caches)} precomputes")
+
+            # bf16: the first call's 4 steps against the plain run's (the
+            # features of 256 rows round otherwise than those of 64, and 16
+            # steps of training amplify it: printed, not held); fp32: all
+            # 16 steps, the superbatch's semantics
+            def super_line(_, history):
+                first = rel(history[:4], plain[:4])
+                fail_unless(first <= SUPER_RTOL, f"superbatch losses: "
+                            f"{first} relative off the plain run's")
+                return {"max_rel_loss_vs_plain_first_call": first,
+                        "max_rel_loss_vs_plain": rel(history, plain)}
+
+            run("superbatch_4", ["--superbatch", "4"], steps, super_line)
+            fp32 = ["--compute-dtype", "float32"]
+            _, plain32 = run("plain_fp32", fp32, steps)
+
+            def super32_line(_, history):
+                err = rel(history, plain32)
+                fail_unless(err <= SUPER_RTOL, f"fp32 superbatch losses: "
+                            f"{err} relative off the plain run's")
+                return {"max_rel_loss_vs_plain": err}
+
+            run("superbatch_4_fp32", [*fp32, "--superbatch", "4"], steps,
+                super32_line)
+
+            def bn_line(state, _):
+                got = {k: v.cpu() for k, v in
+                       state.cnn.trunk.state_dict().items()}
+                stats = [k for k in got if "running" in k]
+                still = [k for k in stats if torch.equal(got[k], trunk[k])]
+                fail_unless(stats and not still, f"train-mode BN: {still[:5]}"
+                            " did not move")
+                ckpt = latest_checkpoint(os.path.join(d, "bn", "damsm"))
+                saved = diff_parts(state.cnn.state_dict(),
+                                   load_part(ckpt, "cnn"))
+                fail_unless(not saved, f"cnn.pt differs at {saved[:5]}")
+                _, cnn = load_damsm_encoders(
+                    os.path.join(d, "bn", "damsm"), GanConfig(),
+                    state.rnn.embedding.weight.shape[0], SEQ_LEN)
+                read = diff_parts(cnn.state_dict(), state.cnn.state_dict())
+                fail_unless(not read, "load_damsm_encoders differs at "
+                            f"{read[:5]}")
+                moved = max(float((got[k] - trunk[k]).abs().max())
+                            for k in stats)
+                return {"statistics": len(stats), "all_moved": True,
+                        "max_stat_move": moved, "cnn_pt_equal": True,
+                        "damsm_checkpoint_reads_them": True}
+
+            run("bn", ["--trunk-train-mode-bn", "--epochs", "1"], steps // 2,
+                bn_line)
+            dataset.build_vocab()
+            attention_maps(torch, trunk, dataset, os.path.join(d, "maps"),
+                           card_name)
+            options_throughput(torch, trunk, card_name)
+    finally:
+        synthetic.make_synthetic_dataset = make_dataset
+        DamsmTrainer.precompute_trunk_features = precompute
+    return total
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -1834,11 +2201,13 @@ def main() -> int:
     lap("loops")
     captioner_launches = captioner_phase(torch, card_name)
     lap("captioner")
+    options_launches = pretrain_options_phase(torch, card_name)
+    lap("pretrain_options")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     # launches summed over every path: serving, pretrain, GAN step, loops,
-    # captioner
+    # captioner, pretrain options
     for counted in (damsm_launches, gan_launches, loop_launches,
-                    captioner_launches):
+                    captioner_launches, options_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 

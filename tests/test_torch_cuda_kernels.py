@@ -28,6 +28,15 @@ error on the CPU).
 The data path and the loops: the image pyramid on the card against the
 CPU, and both loops at tiny dims with exact launch counts.
 
+The pretrain options: one cached, one superbatch (K = 2) and one
+train-mode trunk BN step in fp32 on the card (the tiny encoder, the BN step
+on the Inception trunk at 64^2, batch 2), with exact K4 / K5 launches,
+against the CPU: metrics to 1e-3 relative (the BN step's trunk is 94 convs,
+cuDNN against the CPU's), the moved statistics to 1e-3 relative plus 1e-4,
+the trained parameters to 1e-4 in all but 1% of each tensor's elements,
+which may differ by 2 lr a step (Adam's first steps move an element by
+about +-lr, one way on each device where its two gradients straddle 0).
+
 The GAN step's shapes and modes: K4 and K5 at 16 x 16 with 5 words (the
 G-step's DAMSM coupling); K1's gradient under autograd at batch 16 in bf16
 (the train-mode generator), which must equal the plain path's; the trunk's
@@ -629,3 +638,61 @@ def test_tiny_loops_on_the_card_launch_exactly(cuda, tmp_path):
     assert all(np.isfinite(v).all() for v in losses.values())
     assert got == {"k1": 2 * 2 + 2, "k2": 2, "k3": 0, "k4": 2, "k5": 4,
                    "k6": 0}
+
+
+# ---- the pretrain options
+
+@pytest.mark.parametrize("form", ["cached", "superbatch", "train_mode_bn"])
+def test_pretrain_option_steps_on_the_card_match_the_cpu(cuda, form):
+    import numpy as np
+
+    from attngan_torch.core.config import DamsmConfig
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    rng = np.random.default_rng(1)
+    k = 2 if form == "superbatch" else 1
+    b = 2 if form == "train_mode_bn" else 4
+    rows = k * b
+    batch = {"tokens": rng.integers(0, 30, (rows, 5)),
+             "lengths": rng.integers(1, 6, rows),
+             "class_ids": rng.integers(0, 3, rows)}
+    if form == "cached":
+        batch.update(
+            trunk_regions=rng.uniform(0, 2, (rows, 289, 128)).astype(
+                np.float16),
+            trunk_pooled=rng.uniform(0, 2, (rows, 128)).astype(np.float16))
+    else:
+        batch["img256"] = np.tanh(rng.standard_normal((rows, 64, 64, 3))
+                                  ).astype(np.float32)
+    cfg = DamsmConfig(
+        emb_dim=32, text_emb_dim=16, batch_size=b, compute_dtype="",
+        dropout=0.0, superbatch=k, trunk_train_mode_bn=form == "train_mode_bn",
+        image_encoder="inception_v3" if form == "train_mode_bn" else "tiny")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = DamsmTrainer(cfg, 30, 5, device=dev)
+        state = trainer.init_state(seed=2)
+        step = {"cached": trainer.train_step_cached,
+                "superbatch": trainer.train_step_super,
+                "train_mode_bn": trainer.train_step}[form]
+        k4, k5 = damsm_similarity.launches, damsm_similarity_bwd_square.launches
+        state, m = step(state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (damsm_similarity.launches - k4,
+                    damsm_similarity_bwd_square.launches - k5) == (k, 2 * k)
+        runs[dev] = ({key: v.cpu().reshape(-1) for key, v in m.items()},
+                     {name: p.detach().cpu() for name, p in state.trainable()},
+                     {key: v.cpu() for key, v in
+                      state.cnn.trunk.state_dict().items()
+                      if "running" in key})
+    (m_gpu, p_gpu, s_gpu), (m_cpu, p_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    for key, v in m_cpu.items():
+        torch.testing.assert_close(m_gpu[key], v, rtol=1e-3, atol=0.0)
+    for name, p in p_cpu.items():
+        diff = (p_gpu[name] - p).abs()
+        assert float(diff.max()) <= 2 * k * cfg.lr + 1e-4, name
+        assert float((diff > 1e-4).float().mean()) <= 0.01, name
+    assert bool(s_cpu) == (form == "train_mode_bn")
+    for key, v in s_cpu.items():
+        torch.testing.assert_close(s_gpu[key], v, rtol=1e-3, atol=1e-4)

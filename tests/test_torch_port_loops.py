@@ -354,9 +354,7 @@ def test_infer_defaults_to_the_gan_checkpoint_dir(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("cli,flag", [
-    (pretrain, "--superbatch"), (pretrain, "--cache-features"),
-    (pretrain, "--pretrained-cnn"), (pretrain, "--trunk-int8"),
-    (infer, "--export"),
+    (pretrain, "--trunk-int8"), (infer, "--export"),
     (train, "--mesh-shape"), (infer, "--int8")])
 def test_flags_of_later_slices_are_refused(cli, flag, capsys):
     with pytest.raises(SystemExit):
