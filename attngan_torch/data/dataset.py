@@ -191,11 +191,13 @@ class Dataset:
         shuffle: bool = True,
         seed: int = 0,
         drop_ragged: bool = True,
+        with_pixels: bool = True,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yields static-shape host batches; ``device_batch`` moves one to
         the device and builds its pyramid there. Ragged final batches are
         dropped like the reference's `len(words) < BATCH_SIZE` skip
-        (train.py:112-113)."""
+        (train.py:112-113). ``with_pixels=False`` leaves out the pixels
+        and flips (a batch of cached trunk features does not read them)."""
         self.build_vocab()
         max_seqlen = max_seqlen or self.max_seqlen
         order = np.arange(len(self.records))
@@ -209,7 +211,7 @@ class Dataset:
             tokens, lengths = self.vocab.encode_batch(
                 [r.caption for r in recs], max_seqlen
             )
-            yield {
+            batch = {
                 "indices": idx,
                 "tokens": tokens,
                 "lengths": lengths,
@@ -217,9 +219,11 @@ class Dataset:
                     [r.class_id if r.class_id is not None else 0 for r in recs],
                     np.int32,
                 ),
-                "pixels": self._batch_pixels(recs),
-                "flip": np.asarray([r.flip for r in recs], bool),
             }
+            if with_pixels:
+                batch.update(pixels=self._batch_pixels(recs),
+                             flip=np.asarray([r.flip for r in recs], bool))
+            yield batch
 
     def evaluate_clustering(self, idx, max_images: int = 50, nrow: int = 10,
                             folder: str = "images_testing", seed: int = 0):

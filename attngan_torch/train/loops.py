@@ -102,8 +102,9 @@ def _epoch_batches(dataset: Dataset, batch_size: int, seq_len: int,
     """One epoch's batches on ``device``, their host side prepared by the
     prefetch thread: K of them concatenated where ``superbatch`` = K > 1,
     and the rows of ``cache`` (host tensors of cached trunk features) in
-    place of the pixels where it is given."""
-    batches = (b for b in dataset.iter_batches(batch_size, seq_len, seed=seed)
+    place of the pixels, which are then not gathered, where it is given."""
+    batches = (b for b in dataset.iter_batches(batch_size, seq_len, seed=seed,
+                                               with_pixels=cache is None)
                if not _skip_batch(b, batch_size))
     if superbatch > 1:
         batches = _group_superbatches(batches, superbatch)

@@ -105,17 +105,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    steps/s through its loop beside the other's;
 9. the pretrain options at full width (DamsmConfig defaults, a seeded
    Inception-v3 trunk written as a torchvision .pth with num_batches_tracked,
-   AuxLogits and fc entries), through ``cli.pretrain``'s ``main(argv)`` over
-   512 synthetic images at batch 64 (made once): ``--pretrained-cnn`` (the
-   trained state's trunk equal to the file's bit for bit), 2 epochs plain,
-   with ``--cache-features`` (the precompute's seconds, the cache's MB, all
-   finite; losses within 1e-2 relative of the plain run's) and with
-   ``--superbatch 4`` (its first call's 4 losses within 1e-3; in fp32,
-   plain and superbatch again, all 16 within 1e-3), 1 epoch with
-   ``--trunk-train-mode-bn`` (every trunk running statistic moved, the
+   AuxLogits and fc entries) over 512 synthetic images at batch 64: first
+   K4 and K5 at the shapes the phase gives them, one fp32 step with the
+   kernels against one with the plain words loss (metrics and every
+   gradient at phase 2's tolerances), on a batch of the CLI's synthetic
+   data (2 words, 4 classes) and of the comparison runs' (captions of 3-8
+   words over a vocabulary of 1000, 128 classes); then
+   ``run_damsm_training`` over the latter, each run on its own records,
+   from the .pth's trunk as ``--pretrained-cnn`` loads it: 2 epochs plain
+   (the trained state's trunk equal to the file's bit for bit), with the
+   feature cache (the precompute's seconds, the cache's MB, all finite;
+   losses within 1e-2 relative of the plain run's), plain in fp32, with a
+   superbatch of 4 (all 16 losses within 1e-3 of the plain run's, and no
+   further off them than the plain run is off the fp32 one) and in fp32
+   with a superbatch of 4 (all 16 within 1e-3); then
+   ``cli.pretrain``'s ``main(argv)`` on its own data, 1 epoch with
+   ``--trunk-train-mode-bn --pretrained-cnn`` (every trunk running
+   statistic moved, every other trunk tensor equal to the file's, the
    saved ``cnn.pt`` equal to the state, and ``load_damsm_encoders``, which
    ``cli.train --damsm-checkpoint`` calls, reading them bit for bit); each
-   call with K4 once and K5 twice a step and every other kernel 0; then
+   run with K4 once and K5 twice a step and every other kernel 0; then
    ``iter_attention_maps`` over the 512 images (maps/s; each real word's
    map sums to 1 within 1e-5; the first 4 in fp32 within 1e-4 of the
    CPU's) and ``populate_attention_maps`` (8 PNGs read back); and the
@@ -202,16 +211,18 @@ NATIVE_MAD = 6.0      # native vs Pillow decode, mean levels an image
 # (~1e-6: 2.4e-6 on features up to 2.4, H100 80GB HBM3 at 700 W); merges
 # closer than that may come in either order
 HEIGHT_ATOL = 1e-4
-# phase 9: cli.pretrain's options over 512 synthetic images at batch 64
+# phase 9: the pretrain options over 512 synthetic images at batch 64; the
+# comparison runs' captions (3-8 words, a vocabulary of 1000) and classes
 OPTIONS_IMAGES = 512
+OPTIONS_SEED, OPTIONS_CLASSES = 0, 128
 # losses against the plain run's over the same batches: the cached run
 # trains on fp16 features (JAX states an O(1e-3) relative shift for an fp32
 # trunk; a bf16 value is exact in fp16 above 2^-14); the superbatch's
 # trunk runs at 256 rows, where cuDNN rounds the bf16 features otherwise
-# than at 64 (its superbatch_features line says how far): the first step's
-# loss moves by ~5e-6 and 16 steps of training amplify it (0.138 on an H100
-# 80GB HBM3 at 700 W), so bf16 is held over the first superbatch call and
-# fp32 over all 16 steps
+# than at 64 (its superbatch_features line says how far), and training
+# carries that on: its 16 bf16 losses are held to SUPER_RTOL and to the
+# plain run's own bf16 drift (plain bf16 against plain fp32), fp32 to
+# SUPER_RTOL
 CACHED_RTOL, SUPER_RTOL = 1e-2, 1e-3
 # attention maps: each real word's map sums to 1 (an fp32 softmax over 289
 # regions); the card's fp32 maps against the CPU's at batch 4
@@ -1709,6 +1720,7 @@ def attention_maps(torch, trunk: dict, dataset, folder: str,
     from attngan_torch.train.damsm_trainer import DamsmTrainer
     from attngan_torch.utils.imaging import read_png
 
+    dataset.build_vocab()
     vocab, seq = dataset.vocab.n_words, dataset.max_seqlen
     trainer = DamsmTrainer(DamsmConfig(), vocab, seq)
     state = trainer.init_state(seed=0, pretrained_cnn=trunk)
@@ -1754,16 +1766,103 @@ def attention_maps(torch, trunk: dict, dataset, folder: str,
         "pngs": written, "card": card_name}), flush=True)
 
 
+def options_data(base):
+    """A dataset over ``base``'s images (its pixel arrays, new records) with
+    captions of 3 to 8 words drawn from 999 words, each of them used (a
+    vocabulary of VOCAB with UNK), and OPTIONS_CLASSES classes: the data of
+    phase 9's comparison runs, made anew for each run."""
+    import numpy as np
+
+    from attngan_torch.data.dataset import Dataset, Record
+
+    rng = np.random.default_rng(OPTIONS_SEED)
+    n = len(base.records)
+    lengths = rng.integers(3, DAMSM_SEQ + 1, n)
+    lengths[0] = DAMSM_SEQ
+    words = np.concatenate([np.arange(VOCAB - 1), rng.integers(
+        0, VOCAB - 1, int(lengths.sum()) - (VOCAB - 1))])
+    rng.shuffle(words)
+    captions = np.split(words, np.cumsum(lengths)[:-1])
+    return Dataset(records=[
+        Record(r.fpath, r.pixels, flip=r.flip,
+               caption=[f"w{w}" for w in caption],
+               class_id=i % OPTIONS_CLASSES)
+        for i, (r, caption) in enumerate(zip(base.records, captions))])
+
+
+def step_kernels_vs_plain(torch, dataset, label: str, trunk: dict,
+                          counters: dict, card_name: str) -> None:
+    """K4 and K5 at the shapes ``dataset`` gives them on the pretrain path:
+    one fp32 step (TF32 off) at batch 64 on its first batch as the loop
+    draws it, with the kernels and with the plain words loss
+    (``fused_similarity=False``), each on a state from the same seed and
+    trunk; the metrics held to SIMS_TOL and every trainable gradient to
+    GRAD_RTOL plus GRAD_ATOL_SHARE of its largest entry (phase 2's
+    tolerances). Comparison launches: they count in no path's total."""
+    from attngan_torch.core.config import DamsmConfig
+    from attngan_torch.data.dataset import Dataset
+    from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+    dataset.build_vocab()
+    seq = dataset.max_seqlen
+    host = next(dataset.iter_batches(DAMSM_BATCH, seq, seed=1))
+    batch = Dataset.device_batch(host, "cuda")
+    runs = {}
+    for fused in (True, False):
+        trainer = DamsmTrainer(DamsmConfig(compute_dtype="",
+                                           fused_similarity=fused),
+                               dataset.vocab.n_words, seq)
+        state = trainer.init_state(seed=0, pretrained_cnn=trunk)
+        before = {name: c.launches for name, c in counters.items()}
+        _, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        runs[fused] = ({k: float(v) for k, v in m.items()},
+                       [(name, p.grad.clone()) for name, p in
+                        state.trainable()],
+                       {name: c.launches - before[name]
+                        for name, c in counters.items()})
+    want = {name: 0 for name in counters}
+    fail_unless(runs[False][2] == want, f"{label}: the plain step launched "
+                f"{runs[False][2]}")
+    want.update(damsm_similarity=1, damsm_similarity_bwd_square=2)
+    fail_unless(runs[True][2] == want, f"{label}: the kernels' step launched "
+                f"{runs[True][2]}, expected {want}")
+    got, ref = runs[True][0], runs[False][0]
+    metric_err = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ref)
+    for k in ref:
+        torch.testing.assert_close(
+            torch.tensor(got[k]), torch.tensor(ref[k]), **SIMS_TOL,
+            msg=lambda msg: f"{label}: {k} with the kernels: {msg}")
+    grad_err = 0.0
+    for (name, a), (_, b) in zip(runs[True][1], runs[False][1]):
+        scale = float(b.abs().max())
+        grad_err = max(grad_err, float((a - b).abs().max()) / scale)
+        torch.testing.assert_close(
+            a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale,
+            msg=lambda msg: f"{label}: {name}'s gradient with the kernels: "
+            f"{msg}")
+    lengths = host["lengths"]
+    print(json.dumps({
+        "phase": "pretrain_options", "step": "kernels_vs_plain_step",
+        "data": label, "batch": DAMSM_BATCH, "words": seq,
+        "real_word_share": float(lengths.sum() / (len(lengths) * seq)),
+        "classes_in_batch": len(set(host["class_ids"].tolist())),
+        "metrics": got, "max_rel_metric_err": metric_err,
+        "max_grad_err_over_max": grad_err, "card": card_name}), flush=True)
+
+
 def pretrain_options_phase(torch, card_name: str) -> dict:
-    """Phase 9: cli.pretrain's options at full width over 512 synthetic
+    """Phase 9: the pretrain options at full width over 512 synthetic
     images (see the module docstring). Returns {kernel name: launches over
-    the phase's CLI calls}."""
+    the phase's training runs}."""
     import numpy as np
 
     from attngan_torch.cli import pretrain
     from attngan_torch.cli.train import load_damsm_encoders
-    from attngan_torch.core.config import GanConfig
+    from attngan_torch.convert import load_pretrained_trunk
+    from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig
     from attngan_torch.data import synthetic
+    from attngan_torch.train import loops
     from attngan_torch.train.checkpoint import (
         diff_parts,
         latest_checkpoint,
@@ -1773,9 +1872,8 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
 
     counters = kernel_counters()
     total = {}
-    # the images are made once (~6 s of host time each call would spend)
-    dataset = synthetic.make_synthetic_dataset(OPTIONS_IMAGES)
-    make_dataset = synthetic.make_synthetic_dataset
+    # the CLI's own synthetic data, whose images the comparison runs share
+    base = synthetic.make_synthetic_dataset(OPTIONS_IMAGES)
     precompute = DamsmTrainer.precompute_trunk_features
     caches = []
 
@@ -1786,22 +1884,18 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
         caches.append((time.perf_counter() - t, cache))
         return cache
 
-    synthetic.make_synthetic_dataset = lambda *a, **kw: dataset
     DamsmTrainer.precompute_trunk_features = timed_precompute
     try:
         with tempfile.TemporaryDirectory() as d, LoopProbe(torch) as probe:
             pth = os.path.join(d, "inception_v3.pth")
             trunk = write_pretrained_trunk(torch, pth)
-            common = ["--synthetic", str(OPTIONS_IMAGES), "--batch-size",
-                      str(DAMSM_BATCH), "--epochs", "2", "--pretrained-cnn",
-                      pth, "--captions-path", os.path.join(d, "caps.json"),
-                      "--image-dir", os.path.join(d, "img")]
+            step_kernels_vs_plain(torch, base, "cli_synthetic", trunk,
+                                  counters, card_name)
+            step_kernels_vs_plain(torch, options_data(base), "options",
+                                  trunk, counters, card_name)
 
-            def run(step: str, flags: list, steps: int, extra=None):
-                (_, state, history), counts, line = probe.run(
-                    counters, lambda: pretrain.main([
-                        *common, *flags, "--checkpoint-dir",
-                        os.path.join(d, step)]))
+            def count(step: str, fn, steps: int, extra=None):
+                (_, state, history), counts, line = probe.run(counters, fn)
                 want = {name: 0 for name in counters}
                 want.update(damsm_similarity=steps,
                             damsm_similarity_bwd_square=2 * steps)
@@ -1821,6 +1915,17 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                       flush=True)
                 return state, history
 
+            def train(step: str, extra=None, **flags):
+                """2 epochs of run_damsm_training over options_data from
+                the .pth's trunk (what cli.pretrain --pretrained-cnn
+                calls), at DamsmConfig's defaults and ``flags``."""
+                cfg = DamsmConfig(batch_size=DAMSM_BATCH, epochs=2, **flags)
+                run_cfg = RunConfig(checkpoint_dir=os.path.join(d, step),
+                                    image_dir=os.path.join(d, "img"))
+                return count(step, lambda: loops.run_damsm_training(
+                    cfg, run_cfg, options_data(base),
+                    pretrained_cnn=load_pretrained_trunk(pth)), steps, extra)
+
             steps = 2 * OPTIONS_IMAGES // DAMSM_BATCH
 
             def pretrained(state, _):
@@ -1832,7 +1937,7 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                             f"{differ[:5]}")
                 return {"trunk_equals_file": True, "trunk_tensors": len(got)}
 
-            _, plain = run("plain", [], steps, pretrained)
+            _, plain = train("plain", pretrained)
 
             def rel(a, b):
                 return max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -1855,23 +1960,25 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                             cache["regions"]).max()),
                         "max_rel_loss_vs_plain": err}
 
-            run("cached", ["--cache-features"], steps, cache_line)
+            train("cached", cache_line, cache_region_features=True)
             fail_unless(len(caches) == 1, f"{len(caches)} precomputes")
+            _, plain32 = train("plain_fp32", compute_dtype="")
 
-            # bf16: the first call's 4 steps against the plain run's (the
-            # features of 256 rows round otherwise than those of 64, and 16
-            # steps of training amplify it: printed, not held); fp32: all
-            # 16 steps, the superbatch's semantics
+            # all 16 steps against the plain run's, and no further off it
+            # than the plain run is off the fp32 one (bf16's own drift)
             def super_line(_, history):
                 first = rel(history[:4], plain[:4])
-                fail_unless(first <= SUPER_RTOL, f"superbatch losses: "
-                            f"{first} relative off the plain run's")
+                drift, own = rel(history, plain), rel(plain, plain32)
+                fail_unless(drift <= min(SUPER_RTOL, own), f"superbatch "
+                            f"losses: {drift} relative off the plain run's "
+                            f"over 16 steps; the limit is {SUPER_RTOL} and "
+                            f"bf16's own drift {own} (plain bf16 against "
+                            "plain fp32)")
                 return {"max_rel_loss_vs_plain_first_call": first,
-                        "max_rel_loss_vs_plain": rel(history, plain)}
+                        "max_rel_loss_vs_plain": drift,
+                        "plain_bf16_vs_fp32_max_rel": own}
 
-            run("superbatch_4", ["--superbatch", "4"], steps, super_line)
-            fp32 = ["--compute-dtype", "float32"]
-            _, plain32 = run("plain_fp32", fp32, steps)
+            train("superbatch_4", super_line, superbatch=4)
 
             def super32_line(_, history):
                 err = rel(history, plain32)
@@ -1879,9 +1986,10 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                             f"{err} relative off the plain run's")
                 return {"max_rel_loss_vs_plain": err}
 
-            run("superbatch_4_fp32", [*fp32, "--superbatch", "4"], steps,
-                super32_line)
+            train("superbatch_4_fp32", super32_line, compute_dtype="",
+                  superbatch=4)
 
+            # the entry point itself, on its own synthetic data
             def bn_line(state, _):
                 got = {k: v.cpu() for k, v in
                        state.cnn.trunk.state_dict().items()}
@@ -1889,6 +1997,11 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                 still = [k for k in stats if torch.equal(got[k], trunk[k])]
                 fail_unless(stats and not still, f"train-mode BN: {still[:5]}"
                             " did not move")
+                differ = [k for k in got if k not in stats
+                          and not torch.equal(got[k], trunk[k])]
+                fail_unless(set(got) == set(trunk) and not differ,
+                            f"--pretrained-cnn: the trunk differs at "
+                            f"{differ[:5]}")
                 ckpt = latest_checkpoint(os.path.join(d, "bn", "damsm"))
                 saved = diff_parts(state.cnn.state_dict(),
                                    load_part(ckpt, "cnn"))
@@ -1902,17 +2015,22 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
                 moved = max(float((got[k] - trunk[k]).abs().max())
                             for k in stats)
                 return {"statistics": len(stats), "all_moved": True,
-                        "max_stat_move": moved, "cnn_pt_equal": True,
+                        "max_stat_move": moved,
+                        "other_trunk_tensors_equal_file": len(got)
+                        - len(stats), "cnn_pt_equal": True,
                         "damsm_checkpoint_reads_them": True}
 
-            run("bn", ["--trunk-train-mode-bn", "--epochs", "1"], steps // 2,
-                bn_line)
-            dataset.build_vocab()
-            attention_maps(torch, trunk, dataset, os.path.join(d, "maps"),
-                           card_name)
+            count("bn_cli", lambda: pretrain.main([
+                "--synthetic", str(OPTIONS_IMAGES), "--batch-size",
+                str(DAMSM_BATCH), "--epochs", "1", "--trunk-train-mode-bn",
+                "--pretrained-cnn", pth, "--captions-path",
+                os.path.join(d, "caps.json"), "--image-dir",
+                os.path.join(d, "img"), "--checkpoint-dir",
+                os.path.join(d, "bn")]), steps // 2, bn_line)
+            attention_maps(torch, trunk, options_data(base),
+                           os.path.join(d, "maps"), card_name)
             options_throughput(torch, trunk, card_name)
     finally:
-        synthetic.make_synthetic_dataset = make_dataset
         DamsmTrainer.precompute_trunk_features = precompute
     return total
 

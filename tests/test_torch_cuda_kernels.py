@@ -307,6 +307,7 @@ def _counts(counter):
 
 TC_SHAPES = [
     (64, 64, 8, 289, 256),     # K4 and K5 on the pretrain step
+    (64, 64, 2, 289, 256),     # ... on 2-word synthetic captions
     (192, 192, 8, 289, 256),   # K4 and K6 on the B=192 step
     (16, 64, 8, 289, 256),     # a data-parallel shard's rows
     (4, 6, 8, 33, 256),        # ragged R: 1 region in the last chunk

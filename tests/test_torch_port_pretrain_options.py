@@ -561,6 +561,37 @@ def test_loops_match_jax(tmp_path, capsys, flags, steps):
             capsys.readouterr().out
 
 
+def test_cached_loop_gathers_no_pixels(monkeypatch):
+    """With a cache the loop's batches carry the cached rows of their
+    records and read no pixels; without one they carry the pyramid."""
+    from attngan_torch.data.synthetic import make_synthetic_dataset
+
+    dataset = make_synthetic_dataset(8, res=RES)
+    dataset.build_vocab()
+    reads = []
+
+    def batch_pixels(recs):
+        reads.append(len(recs))
+        return Dataset._batch_pixels(dataset, recs)
+
+    monkeypatch.setattr(dataset, "_batch_pixels", batch_pixels)
+    cache = {"regions": torch.arange(8.0).reshape(8, 1, 1).expand(8, 3, 2),
+             "pooled": torch.arange(8.0).reshape(8, 1).expand(8, 5)}
+    cpu = torch.device("cpu")
+    cached = list(loops._epoch_batches(dataset, 4, dataset.max_seqlen, 0,
+                                       cpu, cache))
+    assert len(cached) == 2 and not reads
+    rows = np.concatenate([b["trunk_regions"][:, 0, 0].numpy()
+                           for b in cached])
+    assert sorted(rows) == list(range(8))
+    assert all("img256" not in b and b["trunk_pooled"].shape == (4, 5)
+               for b in cached)
+    plain = list(loops._epoch_batches(dataset, 4, dataset.max_seqlen, 0, cpu))
+    assert reads == [4, 4]
+    assert all(b["img256"].shape[0] == 4 and "trunk_regions" not in b
+               for b in plain)
+
+
 @pytest.mark.parametrize("n,k", [(5, 2), (1, 2), (4, 2)])
 def test_group_superbatches_as_jax(capsys, n, k):
     """The leftover warning (ZERO steps where no group fills), as JAX's."""
