@@ -14,14 +14,22 @@ measures throughput (--benchmark) or writes PNGs for the --image-names
 entries, captioned from the captions JSON: the final
 stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
-first two captions (--swap). The JAX CLI's --int8, --export* and
---mesh-shape are later slices of the port: argparse refuses them.
+first two captions (--swap). The JAX CLI's --int8 and --export* are
+later slices of the port: argparse refuses them.
+
+Under ``torchrun`` the ranks serve one batch together (JAX's
+data-parallel inference; --mesh-shape as the JAX CLI takes it): every
+rank draws the whole batch's noise, samples its own rows, and rank 0
+writes the PNGs or prints the benchmark line, which counts the ranks in
+``devices``.
 
 Examples:
   python -m attngan_torch.cli.infer --benchmark --batch-size 64
   python -m attngan_torch.cli.infer --captions-path data/caps.json \
       --checkpoint checkpoints/gan --image-names imgA imgB --swap 1 \
       --all-stages --save-attention --out out/
+  torchrun --standalone --nproc-per-node 2 -m attngan_torch.cli.infer \
+      --benchmark --batch-size 64 --mesh-shape 2
 """
 
 from __future__ import annotations
@@ -81,6 +89,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="default: the GPU (an error without one); 'cpu' "
                         "runs the plain PyTorch versions of the kernels")
+    p.add_argument("--mesh-shape", type=int, nargs="*", default=[],
+                   help="device mesh shape: empty=auto 1-D; one int=1-D over "
+                        "n devices; two ints=2-D (slices, chips) multi-slice"
+                        " (ranks of a torchrun launch)")
     return p.parse_args(argv)
 
 
@@ -193,16 +205,24 @@ def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
     gen = torch.Generator(sampler.device).manual_seed(args.seed)
 
     def sync():
+        """The device's queue drained, then every rank's (the images stay
+        sharded over the ranks, as JAX's benchmark leaves them)."""
         if sampler.device.type == "cuda":
             torch.cuda.synchronize(sampler.device)
+        if sampler.mesh is not None:
+            sampler.mesh.barrier()
 
-    imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
+    def call():
+        return sampler.generate_from_tokens(tokens, lengths, generator=gen,
+                                            gather=False)
+
+    imgs = call()
     sync()                                 # build + warm-up, untimed
     rates = []
     for _ in range(windows):
         start = time.perf_counter()
         for _ in range(iters):
-            imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
+            imgs = call()
         sync()
         rates.append(args.batch_size * iters / (time.perf_counter() - start))
     if not bool(torch.isfinite(imgs).all()):
@@ -214,6 +234,7 @@ def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
             "windows": rates,
             "spread_pct": 100.0 * (max(rates) - min(rates)) / median,
             "batch_size": args.batch_size, "device": device,
+            "devices": 1 if sampler.mesh is None else sampler.mesh.size,
             "compute_dtype": cfg.compute_dtype,
             "fused_upsample": cfg.fused_upsample}
 
@@ -242,6 +263,8 @@ def _write_images(sampler, handler, args) -> list:
                                          max_seqlen=sampler.cfg.seq_len)
     gen = torch.Generator(sampler.device).manual_seed(args.seed)
     stages, attns = sampler.generate_stages(tokens, lengths, generator=gen)
+    if sampler.mesh is not None and not sampler.mesh.is_main:
+        return []                          # rank 0 writes them
     stages, attns = _host_images(stages), _host_images(attns)
     os.makedirs(args.out, exist_ok=True)
     written = []
@@ -266,23 +289,37 @@ def _write_images(sampler, handler, args) -> list:
 
 
 def main(argv=None):
-    """Returns the benchmark's result, or the paths of the PNGs written."""
+    """Returns the benchmark's result, or the paths of the PNGs written
+    (on a rank other than 0: None, or no paths)."""
     args = parse_args(argv)
     if not args.benchmark and not args.image_names:
         raise SystemExit("pass --image-names (or --benchmark)")
+    from attngan_torch.parallel.mesh import launched
+
+    with launched(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device):
     from attngan_torch.data.captions import CaptionHandler
     from attngan_torch.infer.sampler import Sampler
+    from attngan_torch.parallel.mesh import make_mesh
 
     handler = None
     if args.image_names or os.path.exists(args.captions_path):
         handler = CaptionHandler(args.captions_path)
     cfg, shapes = _config(args)
+    n_items = args.batch_size if args.benchmark else len(args.image_names)
+    mesh = make_mesh(n_items, tuple(args.mesh_shape), device or "cuda")
+    if mesh is None:
+        return None
     state = _load_state(args, cfg, shapes, handler)
-    sampler = Sampler(state, device=args.device)
+    sampler = Sampler(state, device=device, mesh=mesh)
 
     if args.benchmark:
         result = _benchmark(sampler, args)
-        print(json.dumps(result))
+        if mesh.is_main:
+            print(json.dumps(result))
         return result
     return _write_images(sampler, handler, args)
 

@@ -23,8 +23,12 @@ torchvision Inception-v3 .pth, read by name: no conversion step).
 --data-root decodes images with the native JPEG loader or Pillow; the
 synthetic path needs neither Pillow nor matplotlib, and --cluster needs
 scipy but not scikit-learn (unless --reducer spectral or tsne). The JAX
-CLI's --trunk-int8 and --mesh-shape are later slices of the port: argparse
-refuses them.
+CLI's --trunk-int8 is a later slice of the port: argparse refuses it.
+
+Under ``torchrun`` each rank is one process (its own card, or several
+sharing one over gloo), --batch-size is the global batch, and
+--mesh-shape picks the ranks as the JAX CLI picks devices; rank 0 writes
+the captions JSON, the checkpoints and the plots.
 
 Examples:
   python -m attngan_torch.cli.pretrain --data-root /data/bedrooms \\
@@ -34,6 +38,8 @@ Examples:
       --pretrained-cnn inception_v3_google.pth
   python -m attngan_torch.cli.pretrain --synthetic 16 --batch-size 4 \\
       --epochs 1 --emb-dim 32 --image-encoder tiny --device cpu
+  torchrun --standalone --nproc-per-node 2 -m attngan_torch.cli.pretrain \\
+      --synthetic 128 --epochs 2 --mesh-shape 2
 """
 
 from __future__ import annotations
@@ -115,15 +121,27 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="default: the GPU (an error without one); 'cpu' "
                         "runs the plain PyTorch versions of the kernels")
+    p.add_argument("--mesh-shape", type=int, nargs="*", default=[],
+                   help="device mesh shape: empty=auto 1-D; one int=1-D over "
+                        "n devices; two ints=2-D (slices, chips) multi-slice"
+                        " (ranks of a torchrun launch; the batch is global)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     """Returns run_damsm_training's (trainer, state, loss history)."""
     args = parse_args(argv)
+    from attngan_torch.parallel.mesh import launched
+
+    with launched(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device):
     from attngan_torch.core.config import DamsmConfig, RunConfig
     from attngan_torch.data.streaming import open_dataset
     from attngan_torch.data.synthetic import make_synthetic_dataset
+    from attngan_torch.parallel.mesh import global_rank
     from attngan_torch.train.loops import run_damsm_training
 
     if args.stream and args.cache_features:
@@ -143,7 +161,7 @@ def main(argv=None):
 
         for rec in dataset.records:     # reset_captions_and_class_ids
             rec.caption, rec.class_id = [], None
-        HierarchicalClusterer(device=args.device).cluster(
+        HierarchicalClusterer(device=device).cluster(
             dataset, latent_dims=args.latent_dims,
             max_vocab_size=args.max_vocab_size,
             min_clusters=args.min_clusters, method=args.cluster_method,
@@ -151,8 +169,10 @@ def main(argv=None):
     if args.cluster or args.synthetic:
         # clustered or synthetic captions live in memory; persist them so
         # the GAN and serving phases can rebuild the same vocab from JSON
-        os.makedirs(os.path.dirname(args.captions_path) or ".", exist_ok=True)
-        dataset.save_captions_and_class_ids(args.captions_path)
+        if global_rank() == 0:
+            os.makedirs(os.path.dirname(args.captions_path) or ".",
+                        exist_ok=True)
+            dataset.save_captions_and_class_ids(args.captions_path)
     else:
         dataset.load_captions_and_class_ids(args.captions_path)
 
@@ -166,14 +186,15 @@ def main(argv=None):
     run_cfg = RunConfig(seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                         log_every=args.log_every,
                         image_dir=args.image_dir, profile=args.profile,
-                        checkpoint_every_epochs=args.checkpoint_every_epochs)
+                        checkpoint_every_epochs=args.checkpoint_every_epochs,
+                        mesh_shape=tuple(args.mesh_shape))
     pretrained = None
     if args.pretrained_cnn:
         from attngan_torch.convert import load_pretrained_trunk
 
         pretrained = load_pretrained_trunk(args.pretrained_cnn)
     return run_damsm_training(cfg, run_cfg, dataset, resume=args.resume,
-                              device=args.device, pretrained_cnn=pretrained)
+                              device=device, pretrained_cnn=pretrained)
 
 
 if __name__ == "__main__":

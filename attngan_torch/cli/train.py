@@ -12,8 +12,13 @@ step with the adversarial, DAMSM and KL terms. Checkpoints go to
 
 --data-root decodes images eagerly with Pillow or, with --stream (on by
 itself above 50k records), batch by batch through the native JPEG loader;
-the synthetic path needs neither Pillow nor matplotlib. --mesh-shape is a
-later slice of the port: argparse refuses it.
+the synthetic path needs neither Pillow nor matplotlib.
+
+Under ``torchrun`` each rank is one process (its own card, or several
+sharing one over gloo), --batch-size is the global batch, and
+--mesh-shape picks the ranks as the JAX CLI picks devices: sync-BN, the
+sharded DAMSM coupling, gradients averaged; rank 0 writes the checkpoints,
+grids and plots.
 
 Examples:
   python -m attngan_torch.cli.train --synthetic 64 --epochs 2 \\
@@ -21,6 +26,9 @@ Examples:
   python -m attngan_torch.cli.train --synthetic 16 --batch-size 4 \\
       --num-stages 2 --gf-dim 8 --df-dim 8 --emb-dim 32 --seq-len 4 \\
       --image-encoder tiny --epochs 1 --device cpu
+  torchrun --standalone --nproc-per-node 2 -m attngan_torch.cli.train \\
+      --synthetic 64 --epochs 2 --mesh-shape 2 \\
+      --damsm-checkpoint checkpoints/damsm
 """
 
 from __future__ import annotations
@@ -78,6 +86,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="default: the GPU (an error without one); 'cpu' "
                         "runs the plain PyTorch versions of the kernels")
+    p.add_argument("--mesh-shape", type=int, nargs="*", default=[],
+                   help="device mesh shape: empty=auto 1-D; one int=1-D over "
+                        "n devices; two ints=2-D (slices, chips) multi-slice"
+                        " (ranks of a torchrun launch; the batch is global)")
     return p.parse_args(argv)
 
 
@@ -105,6 +117,13 @@ def load_damsm_encoders(path: str, cfg, vocab_size: int, seq_len: int,
 def main(argv=None):
     """Returns run_gan_training's (trainer, state, {metric: history})."""
     args = parse_args(argv)
+    from attngan_torch.parallel.mesh import launched
+
+    with launched(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device):
     from attngan_torch.core.config import GanConfig, RunConfig
     from attngan_torch.data.streaming import open_dataset
     from attngan_torch.data.synthetic import make_synthetic_dataset
@@ -128,15 +147,16 @@ def main(argv=None):
     run_cfg = RunConfig(seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                         log_every=args.log_every,
                         image_dir=args.image_dir, profile=args.profile,
-                        checkpoint_every_epochs=args.checkpoint_every_epochs)
+                        checkpoint_every_epochs=args.checkpoint_every_epochs,
+                        mesh_shape=tuple(args.mesh_shape))
 
     rnn = cnn = None
     if args.damsm_checkpoint:
         rnn, cnn = load_damsm_encoders(
             args.damsm_checkpoint, cfg, dataset.vocab.n_words, args.seq_len,
-            device=args.device)
+            device=device)
     return run_gan_training(cfg, run_cfg, dataset, rnn=rnn, cnn=cnn,
-                            resume=args.resume, device=args.device)
+                            resume=args.resume, device=device)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,17 @@ A flattened ``GanState`` is read by ``load_gan_flat``: ``gen_params`` /
 Its PRNG key is not part of the input either.
 tools/convert_torch_weights.py is the trunk mapping in the other direction.
 
+``python -m attngan_torch.convert STATE.npz --out DIR`` (``write_checkpoint``)
+reads the ``.npz`` that the repository root's ``export_jax_state.py``
+writes from an orbax checkpoint (the flat dict above plus a ``__meta__``
+entry: the kind, the JAX config, the vocabulary size, the step, the epoch)
+and writes a port checkpoint directory, ``DIR/step_*/<part>.pt`` with
+``config.json`` and ``progress.json``: an InferState's ``rnn.pt`` and
+``gen.pt``, which ``cli.infer --checkpoint DIR`` serves, or a whole
+DamsmState or GanState, which ``cli.train --damsm-checkpoint DIR`` and
+``--resume`` read. The port's ``torch.Generator`` of the state starts from
+``--seed`` (JAX's PRNG key has no counterpart).
+
 A pretrained trunk (``--pretrained-cnn``) is read from the torchvision
 Inception-v3 ``.pth`` itself by ``load_pretrained_trunk``: the port's trunk
 has torchvision's keys, so only the classifier heads and the BN counters
@@ -55,6 +66,9 @@ tools/convert_torch_weights.py makes from the same file.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
 import re
 from typing import Dict, Mapping
 
@@ -494,3 +508,81 @@ def load_pretrained_trunk(path: str) -> Dict[str, torch.Tensor]:
     ``DamsmTrainer.init_state(pretrained_cnn=)``."""
     return torchvision_trunk_state_dict(
         torch.load(path, map_location="cpu", weights_only=True))
+
+
+# ------------------------------------------- an exported JAX state -> a dir
+
+@dataclasses.dataclass
+class _ServingParts:
+    """The two parts of a GAN checkpoint that serving reads."""
+
+    rnn: torch.nn.Module
+    gen: torch.nn.Module
+
+
+def _port_config(cls, recorded: Mapping[str, object]):
+    """The port's ``cls`` with the fields a JAX config recorded; the
+    kernel switches (``fused_*``) keep the port's defaults: they choose
+    how the same function runs, and the port's run its kernels."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in recorded.items()
+                  if k in names and not k.startswith("fused")})
+
+
+def write_checkpoint(npz_path: str, out: str, seed: int = 0) -> str:
+    """The port checkpoint directory ``out`` of an ``export_jax_state.py``
+    file; returns the step's path."""
+    from attngan_torch.core.config import DamsmConfig, GanConfig
+    from attngan_torch.train.checkpoint import save_checkpoint
+
+    with np.load(npz_path) as f:
+        meta = json.loads(str(f["__meta__"]))
+        flat = {k: f[k] for k in f.files if k != "__meta__"}
+    kind, vocab = meta["kind"], meta["vocab_size"]
+    if kind == "infer":
+        from attngan_torch.infer.sampler import InferState
+
+        cfg = _port_config(GanConfig, meta["config"])
+        infer = InferState(cfg, vocab)
+        load_flat(flat, infer.rnn, infer.generator)
+        state, step = _ServingParts(infer.rnn, infer.generator), meta["step"]
+    elif kind == "damsm":
+        from attngan_torch.train.damsm_trainer import DamsmTrainer
+
+        cfg = _port_config(DamsmConfig, meta["config"])
+        state = DamsmTrainer(cfg, vocab, seq_len=1,
+                             device="cpu").init_state(seed)
+        load_damsm_flat(flat, state)
+        step = state.step
+    elif kind == "gan":
+        from attngan_torch.train.gan_trainer import GanTrainer
+
+        cfg = _port_config(GanConfig, meta["config"])
+        state = GanTrainer(cfg, vocab, device="cpu").init_state(seed)
+        load_gan_flat(flat, state)
+        step = state.step
+    else:
+        raise ValueError(f"{npz_path}: unknown state kind {kind!r}")
+    return save_checkpoint(out, state, step, cfg,
+                           epoch=meta.get("epoch", 0))
+
+
+def main(argv=None) -> str:
+    p = argparse.ArgumentParser(
+        prog="python -m attngan_torch.convert",
+        description="Turn an export_jax_state.py .npz into a port "
+                    "checkpoint directory (DIR/step_*/<part>.pt).")
+    p.add_argument("npz", help="the file export_jax_state.py wrote")
+    p.add_argument("--out", required=True, help="the checkpoint directory")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the state's torch.Generator (JAX's PRNG "
+                        "key has no counterpart)")
+    args = p.parse_args(argv)
+    path = write_checkpoint(args.npz, args.out, args.seed)
+    print(f"wrote {path}")
+    return path
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,7 @@ The port keeps its own copies of the JAX package's ``GanConfig``,
 instead of importing them: the port imports nothing of that package. Field
 names and model-shape defaults are the same, so a checkpoint's recorded
 config reads the same in both. Only the fields the port uses are copied:
-``DamsmConfig``'s int8 trunk and ``RunConfig``'s ``mesh_shape`` come with
-their own slices. ``GanConfig``'s ``remat_coupling`` and
+``DamsmConfig``'s int8 trunk comes with its own slice. ``GanConfig``'s ``remat_coupling`` and
 ``reuse_gen_forward`` have no counterpart: they choose how XLA schedules
 the same step, and autograd keeps the one generator forward's graph.
 """
@@ -111,9 +110,12 @@ SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
 @dataclass(frozen=True)
 class RunConfig:
     """Process-level knobs shared by the training loops
-    (attngan_tpu/core/config.py::RunConfig without ``mesh_shape``)."""
+    (attngan_tpu/core/config.py::RunConfig)."""
 
     seed: int = 0
+    # the ranks' mesh (parallel/mesh.py::make_mesh): () = the most ranks
+    # that divide the batch, (n,) = n ranks, (slices, data) = 2-D
+    mesh_shape: Tuple[int, ...] = ()
     checkpoint_dir: str = "checkpoints"
     image_dir: str = "generated_images"
     log_every: int = 50

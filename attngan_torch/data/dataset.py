@@ -192,12 +192,17 @@ class Dataset:
         seed: int = 0,
         drop_ragged: bool = True,
         with_pixels: bool = True,
+        rows: Optional[slice] = None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yields static-shape host batches; ``device_batch`` moves one to
         the device and builds its pyramid there. Ragged final batches are
         dropped like the reference's `len(words) < BATCH_SIZE` skip
         (train.py:112-113). ``with_pixels=False`` leaves out the pixels
-        and flips (a batch of cached trunk features does not read them)."""
+        and flips (a batch of cached trunk features does not read them).
+        ``rows`` (a data-parallel rank's share): the pixels and flips are
+        those rows' only, and the rest stays the whole batch's, so that
+        every rank decides on the whole batch (``take_rows`` then cuts
+        it)."""
         self.build_vocab()
         max_seqlen = max_seqlen or self.max_seqlen
         order = np.arange(len(self.records))
@@ -221,6 +226,7 @@ class Dataset:
                 ),
             }
             if with_pixels:
+                recs = recs if rows is None else recs[rows]
                 batch.update(pixels=self._batch_pixels(recs),
                              flip=np.asarray([r.flip for r in recs], bool))
             yield batch
@@ -278,6 +284,16 @@ class Dataset:
             out.update(img64=pyramid[64], img128=pyramid[128],
                        img256=pyramid[256])
         return out
+
+
+def take_rows(host_batch: Dict[str, np.ndarray], rows: Optional[slice]
+              ) -> Dict[str, np.ndarray]:
+    """A host batch of ``iter_batches(rows=rows)`` cut to those rows (its
+    pixels and flips are already)."""
+    if rows is None:
+        return host_batch
+    return {k: v if k in ("pixels", "flip") else v[rows]
+            for k, v in host_batch.items()}
 
 
 def pinned_batch(host_batch: Dict[str, np.ndarray],

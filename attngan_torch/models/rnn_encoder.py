@@ -7,7 +7,9 @@ final hidden state. Runs in fp32 (the JAX module has no compute dtype).
 
 Train-mode dropout draws its mask from the ``torch.Generator`` the caller
 passes (the JAX module takes an explicit "dropout" key); eval mode is the
-identity. The JAX module has one bias per direction: ``bias_hh`` stays zero
+identity. A data-parallel rank passes ``shard`` = (its index, the number
+of ranks): the mask is drawn for the whole global batch and the rank keeps
+its rows, so that n ranks draw what one process draws. The JAX module has one bias per direction: ``bias_hh`` stays zero
 and takes no gradient, so that the trained bias is ``bias_ih`` alone.
 """
 
@@ -40,12 +42,16 @@ class BiLSTMEncoder(nn.Module):
             bias.requires_grad_(False)
 
     def forward(self, captions: torch.Tensor, lengths: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         seq_len = captions.shape[1]
         x = self.embedding(captions.long())
         if self.training and self.dropout > 0:
-            keep = torch.rand(x.shape, generator=generator, device=x.device)
+            index, count = shard
+            b = x.shape[0]
+            keep = torch.rand((b * count, *x.shape[1:]), generator=generator,
+                              device=x.device)[index * b:(index + 1) * b]
             x = torch.where(keep >= self.dropout, x / (1.0 - self.dropout),
                             torch.zeros_like(x))
         # packing needs lengths >= 1 on the host; an empty caption gets

@@ -10,6 +10,12 @@ BatchNorm follows attngan_tpu/ops/layers.py::TorchBatchNorm: train mode
 normalizes with the biased batch variance in fp32 and folds the unbiased
 one into the running average (momentum 0.1, eps 1e-5: PyTorch's own rule);
 eval mode folds the statistics into fp32 constants cast to x's dtype.
+Under data parallelism (``parallel.mesh.sync_batch_norm_`` sets ``mesh``)
+train mode takes the statistics of the global batch, as the JAX step does
+under SPMD: the mean, then the mean squared deviation from it, each a sum
+over the ranks (two-pass, as TorchBatchNorm computes them), through a
+differentiable all-reduce; the running statistics then move alike on
+every rank.
 
 The JAX package's dilated and parity UpBlock forms (layers.py:174-248) are
 XLA lowerings of the same function. Outside the kernel route the port runs
@@ -78,6 +84,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None    # parallel.mesh.Mesh of > 1 ranks: sync the stats
 
     def fold(self):
         """Eval-mode affine constants (k, b), fp32: y = x * k + b."""
@@ -89,9 +96,29 @@ class BatchNorm(nn.Module):
             k, b = self.fold()
             shape = (1, -1) + (1,) * (x.dim() - 2)
             return x * k.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+        if self.mesh is not None:
+            return self._global_batch_norm(x)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, training=True,
                          momentum=BN_MOMENTUM, eps=self.eps)
+        return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the rows of every rank of ``self.mesh``."""
+        from attngan_torch.parallel.mesh import all_reduce_sum
+
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        n = xf.numel() // xf.shape[1] * self.mesh.size
+        mean = all_reduce_sum(xf.sum(dims), self.mesh) / n
+        centred = xf - mean.view(shape)
+        var = all_reduce_sum(centred.square().sum(dims), self.mesh) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, BN_MOMENTUM)
+            self.running_var.lerp_(var * (n / max(n - 1, 1)), BN_MOMENTUM)
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

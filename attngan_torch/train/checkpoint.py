@@ -15,6 +15,8 @@ on the CPU, beside the ``config.json`` and ``progress.json`` sidecars in
 ``directory``. A save is written under a hidden name and renamed into
 place, so a crash mid-save leaves the previous checkpoints as they were.
 Serving reads only ``rnn.pt`` and ``gen.pt`` (``restore_inference_state``).
+On a mesh of data-parallel ranks, whose states are equal, rank 0 writes
+and every rank waits at a barrier until the files are in place.
 """
 
 from __future__ import annotations
@@ -82,11 +84,25 @@ def diff_parts(a: Any, b: Any, where: str = "") -> List[str]:
 
 
 def save_checkpoint(directory: str, state: Any, step: int,
-                    config: Any = None, epoch: Optional[int] = None) -> str:
+                    config: Any = None, epoch: Optional[int] = None,
+                    mesh=None) -> str:
     """Write ``state`` to ``directory/step_{step:08d}`` (replacing a save of
-    the same step) and the sidecars; returns the step's path."""
+    the same step) and the sidecars; returns the step's path. With a
+    ``mesh`` (parallel/mesh.py) rank 0 writes, then every rank of it waits
+    for the others."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, f"step_{step:08d}")
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return path
+    _write(directory, path, state, step, config, epoch)
+    if mesh is not None:
+        mesh.barrier()
+    return path
+
+
+def _write(directory: str, path: str, state: Any, step: int, config: Any,
+           epoch: Optional[int]) -> None:
     partial = os.path.join(directory, f".step_{step:08d}.partial")
     shutil.rmtree(partial, ignore_errors=True)
     os.makedirs(partial)
@@ -106,7 +122,6 @@ def save_checkpoint(directory: str, state: Any, step: int,
         # resumed runs must continue epoch numbering, not restart at 1.
         with open(os.path.join(directory, "progress.json"), "w") as f:
             json.dump({"epoch": epoch, "step": step}, f)
-    return path
 
 
 def load_progress_sidecar(directory: str) -> int:

@@ -28,6 +28,16 @@ behind another trunk forward:
   statistics; the folded copy is then stale and is dropped.
 ``iter_attention_maps`` / ``populate_attention_maps`` are the reference's
 ``populate_attnmaps``. The int8 trunk is a later slice of the port.
+
+Data parallel (``mesh`` of n > 1 ranks, parallel/mesh.py): each rank's
+batch is its rows of the global batch. The words + sentence loss is the
+sharded one (losses/damsm_sharded.py: K4 and K6 on this rank's images x
+all texts), the match labels are the global batch's, the BiLSTM's dropout
+mask is drawn at the global batch and sliced, the train-mode trunk's BN
+takes the global batch's statistics, and the gradients are averaged over
+the ranks BEFORE the BiLSTM's clip, whose norm is then the global
+gradient's: every rank takes the step one process takes on the whole
+batch.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from attngan_torch.data.dataset import (
 )
 from attngan_torch.data.prefetch import prefetch
 from attngan_torch.losses.damsm import damsm_loss
+from attngan_torch.losses.damsm_sharded import make_sharded_damsm_loss
 from attngan_torch.models.cnn_encoder import (
     InceptionV3Trunk,
     freeze_trunk,
@@ -58,6 +69,11 @@ from attngan_torch.models.cnn_encoder import (
 )
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
 from attngan_torch.ops.attention import damsm_attention
+from attngan_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_mean_,
+    sync_batch_norm_,
+)
 from attngan_torch.utils.imaging import save_attention_maps
 
 HEADS = ("emb_features", "emb_cnn_code")
@@ -89,7 +105,8 @@ class DamsmTrainer:
     """Owns the configuration and the step; the weights are in the state."""
 
     def __init__(self, cfg: DamsmConfig, vocab_size: int, seq_len: int,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Optional[Mesh] = None):
         # attngan_tpu/train/damsm_trainer.py:78-91
         if cfg.cache_region_features and cfg.trunk_train_mode_bn:
             raise ValueError(
@@ -106,6 +123,19 @@ class DamsmTrainer:
         self.seq_len = seq_len
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.compute_dtype)
+        # attngan_tpu/train/damsm_trainer.py:68-76
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.sharded_loss = None
+        if self.mesh is not None:
+            self.sharded_loss = make_sharded_damsm_loss(
+                self.mesh, cfg.gamma1, cfg.gamma2, cfg.gamma3, cfg.wlambda,
+                cfg.slambda, fused=cfg.fused_similarity)
+
+    @property
+    def shard(self) -> Tuple[int, int]:
+        """(this rank's index, the number of ranks)."""
+        return (0, 1) if self.mesh is None else (self.mesh.rank,
+                                                 self.mesh.size)
 
     # ---- init ----
 
@@ -132,6 +162,7 @@ class DamsmTrainer:
         rnn.to(self.device)
         cnn.to(self.device).eval()
         cnn.trunk.requires_grad_(False)
+        sync_batch_norm_(cnn.trunk, self.mesh)   # train-mode BN only
         state = DamsmState(rnn, cnn, None,
                            torch.Generator(self.device).manual_seed(seed))
         state.optimizer = torch.optim.Adam(
@@ -170,8 +201,9 @@ class DamsmTrainer:
         function of its pixels in any batch, though cuDNN may round them
         otherwise in bf16 at K x B rows than at B), then K sequential steps
         on the B-row chunks, each with its own host lengths and its own
-        dropout draw. Metrics come back with a leading dimension K."""
-        k, b = self.cfg.superbatch, self.cfg.batch_size
+        dropout draw. Metrics come back with a leading dimension K. Under
+        a mesh the rows are this rank's of each of the K global batches."""
+        k, b = self.cfg.superbatch, self.cfg.batch_size // self.shard[1]
         kb = batch["tokens"].shape[0]
         if kb != k * b:
             raise ValueError(f"superbatch step expects {k}x{b} rows, got {kb}")
@@ -339,26 +371,35 @@ class DamsmTrainer:
                       ) -> Dict[str, torch.Tensor]:
         """The differentiated tail of every step form: the train-mode
         BiLSTM on the batch's captions, the heads on the trunk's features,
-        the loss, backward, clip of the BiLSTM's gradients, Adam."""
+        the loss, backward, the gradients' mean over the ranks, clip of the
+        BiLSTM's gradients, Adam."""
         cfg, dev = self.cfg, self.device
+        index, count = self.shard
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         lengths = torch.as_tensor(batch["lengths"])   # packing reads them
         class_ids = batch.get("class_ids")            # on the host
         if class_ids is not None:
             class_ids = torch.as_tensor(class_ids).to(dev)
-        labels = torch.arange(tokens.shape[0], device=dev)
+        b = tokens.shape[0]
+        labels = torch.arange(index * b, (index + 1) * b, device=dev)
         mask = word_mask(lengths.to(dev), self.seq_len)
         state.rnn.train()
-        words, sent = state.rnn(tokens, lengths, generator=state.generator)
+        words, sent = state.rnn(tokens, lengths, generator=state.generator,
+                                shard=self.shard)
         regions, code = self._apply_heads(state, trunk_regions, trunk_pooled)
-        total, parts, _ = damsm_loss(
-            regions, code, words, sent, labels, mask, class_ids, cfg.gamma1,
-            cfg.gamma2, cfg.gamma3, cfg.wlambda, cfg.slambda,
-            fused=cfg.fused_similarity, attention_maps=False)
+        if self.sharded_loss is not None:
+            total, parts = self.sharded_loss(regions, code, words, sent,
+                                             labels, mask, class_ids)
+        else:
+            total, parts, _ = damsm_loss(
+                regions, code, words, sent, labels, mask, class_ids,
+                cfg.gamma1, cfg.gamma2, cfg.gamma3, cfg.wlambda, cfg.slambda,
+                fused=cfg.fused_similarity, attention_maps=False)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        grads = [p.grad for name, p in state.trainable()
-                 if name.startswith("rnn.")]
+        trainable = state.trainable()
+        all_reduce_mean_([p.grad for _, p in trainable], self.mesh)
+        grads = [p.grad for name, p in trainable if name.startswith("rnn.")]
         gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
         scale = torch.clamp(cfg.rnn_grad_clip / gnorm.clamp_min(1e-12),
                             max=1.0)

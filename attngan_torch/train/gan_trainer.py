@@ -29,8 +29,19 @@ passes them (the JAX step draws them with jax.random, which no torch
 generator reproduces). The state lives on one device, the GPU unless the
 trainer is built with ``device="cpu"``; PyTorch updates it in place, and
 ``train_step`` returns it with the step's metrics (0-d tensors, read
-without a sync by the step itself). The JAX trainer's sharded DAMSM loss
-(its ``mesh``) is the multi-GPU slice's.
+without a sync by the step itself).
+
+Data parallel (``mesh`` of n > 1 ranks, parallel/mesh.py), as the JAX
+step runs under SPMD: each rank's batch is its rows of the global batch;
+the noise, eps and real labels are drawn at the global batch and sliced
+(given ones are the global batch's too); the generator's and the
+discriminators' train-mode BN take the global batch's statistics; each of
+the four optimizers averages its gradients over the ranks before its
+step; the coupling is the sharded DAMSM loss (losses/damsm_sharded.py: K4
+and K6 on this rank's fakes x all captions); the metrics are averaged over
+the ranks. The frozen encoders stay in eval mode. Each rank's local-mean
+GAN losses and KL average to the global ones; the replicated DAMSM loss
+gives each rank n times its share, which the mean divides back.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from attngan_torch.core.config import GanConfig
 from attngan_torch.core.runtime import compute_dtype, resolve_device
 from attngan_torch.data.dataset import word_mask
 from attngan_torch.losses.damsm import damsm_loss
+from attngan_torch.losses.damsm_sharded import make_sharded_damsm_loss
 from attngan_torch.losses.gan import (
     kl_loss,
     non_saturating_disc_loss,
@@ -57,6 +69,13 @@ from attngan_torch.models.cnn_encoder import freeze_trunk, make_image_encoder
 from attngan_torch.models.discriminators import Discriminator
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
+from attngan_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_mean_,
+    mean_metrics,
+    shard_rows,
+    sync_batch_norm_,
+)
 
 LOSS_VARIANTS = ("non_saturating", "standard")
 
@@ -83,7 +102,8 @@ class GanTrainer:
     """Owns the configuration and the step; the weights are in the state."""
 
     def __init__(self, cfg: GanConfig, vocab_size: int,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Optional[Mesh] = None):
         if cfg.loss_variant not in LOSS_VARIANTS:
             raise ValueError(f"loss_variant must be one of {LOSS_VARIANTS}; "
                              f"got {cfg.loss_variant!r}")
@@ -91,6 +111,13 @@ class GanTrainer:
         self.vocab_size = vocab_size
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.compute_dtype)
+        # attngan_tpu/train/gan_trainer.py:316-324
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.sharded_loss = None
+        if self.mesh is not None:
+            self.sharded_loss = make_sharded_damsm_loss(
+                self.mesh, cfg.gamma1, cfg.gamma2, cfg.gamma3, cfg.wlambda,
+                cfg.slambda, fused=cfg.fused_similarity)
 
     # ---- init ----
 
@@ -114,6 +141,8 @@ class GanTrainer:
                    if cnn is None else copy.deepcopy(cnn))
         gen.to(self.device).train()
         discs.to(self.device).train()
+        sync_batch_norm_(gen, self.mesh)
+        sync_batch_norm_(discs, self.mesh)
         rnn.to(self.device).eval().requires_grad_(False)
         cnn.to(self.device).eval().requires_grad_(False)
 
@@ -135,35 +164,39 @@ class GanTrainer:
                    ) -> Tuple[GanState, Dict[str, torch.Tensor]]:
         """One D-step per resolution and one G-step. batch: tokens (B, L),
         lengths (B,), class_ids (B,) or None, img64[, img128, img256]
-        (B, R, R, 3) in [-1, 1]. ``noise`` (B, z), ``eps`` (B, cond) and
-        ``real_labels`` ({res: (B,)}, the standard loss only) are drawn from
-        ``state.generator`` where not given."""
+        (B, R, R, 3) in [-1, 1], this rank's rows under a mesh. ``noise``
+        (N, z), ``eps`` (N, cond) and ``real_labels`` ({res: (N,)}, the
+        standard loss only), of the global batch N, are drawn from
+        ``state.generator`` where not given, in that order."""
         cfg, dev = self.cfg, self.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         lengths = torch.as_tensor(batch["lengths"])   # packing reads them
         class_ids = batch.get("class_ids")            # on the host
         if class_ids is not None:
             class_ids = torch.as_tensor(class_ids).to(dev)
-        b = tokens.shape[0]
+        n = tokens.shape[0] * (1 if self.mesh is None else self.mesh.size)
         mask = word_mask(lengths.to(dev), cfg.seq_len)
         words, sent = self.embed_text(state, tokens, lengths)
         if noise is None:
-            noise = torch.randn((b, cfg.z_dim), generator=state.generator,
+            noise = torch.randn((n, cfg.z_dim), generator=state.generator,
                                 device=dev)
+        if eps is None:   # the draw CondAugment makes without one
+            eps = torch.randn((n, cfg.cond_dim), generator=state.generator,
+                              device=dev)
         state.gen.train()
         state.discs.train()
         fakes, _, mu, logvar = state.gen(
-            noise.to(dev), sent, words, mask,
-            eps=None if eps is None else eps.to(dev),
-            generator=state.generator)
+            shard_rows(noise.to(dev), self.mesh), sent, words, mask,
+            eps=shard_rows(eps.to(dev), self.mesh))
         fakes = dict(zip(state.discs, fakes))
 
         metrics = {}
         for res in state.discs:
             labels = None
             if cfg.loss_variant == "standard":
-                labels = (real_labels[res] if real_labels is not None
-                          else self._real_labels(state, b))
+                labels = shard_rows(
+                    real_labels[res].to(dev) if real_labels is not None
+                    else self._real_labels(state, n), self.mesh)
             metrics[f"d_loss_{res}"] = self._disc_step(
                 state, res, torch.as_tensor(batch[f"img{res}"]).to(dev),
                 fakes[res].detach(), labels)
@@ -178,11 +211,12 @@ class GanTrainer:
         finally:
             for disc in state.discs.values():
                 disc.requires_grad_(True)
+        all_reduce_mean_([p.grad for p in state.gen.parameters()], self.mesh)
         state.gen_optimizer.step()
         state.step += 1
         metrics.update(parts)
         metrics["g_total"] = total.detach()
-        return state, metrics
+        return state, mean_metrics(metrics, self.mesh)
 
     def embed_text(self, state: GanState, tokens, lengths
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -234,6 +268,7 @@ class GanTrainer:
         optimizer = state.disc_optimizers[res]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_mean_([p.grad for p in disc.parameters()], self.mesh)
         optimizer.step()
         return loss.detach()
 
@@ -270,7 +305,12 @@ class GanTrainer:
             state.frozen_trunk = freeze_trunk(state.cnn.trunk, self.device)
         regions, code = state.cnn.heads(
             *state.frozen_trunk(fake256.permute(0, 3, 1, 2)))
-        labels = torch.arange(fake256.shape[0], device=self.device)
+        b = fake256.shape[0]
+        first = 0 if self.mesh is None else self.mesh.rank * b
+        labels = torch.arange(first, first + b, device=self.device)
+        if self.sharded_loss is not None:
+            return self.sharded_loss(regions, code, words, sent, labels, mask,
+                                     class_ids)[0]
         loss, _, _ = damsm_loss(
             regions, code, words, sent, labels, mask, class_ids, cfg.gamma1,
             cfg.gamma2, cfg.gamma3, cfg.wlambda, cfg.slambda,

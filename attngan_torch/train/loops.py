@@ -14,6 +14,13 @@ host does not wait for the device inside an epoch. With the feature cache
 the thread gathers each batch's cached trunk rows instead of its pixels;
 with a superbatch it concatenates K batches after the degenerate-batch
 skip, and the loop unrolls the K steps' metrics into its history.
+
+Data parallel (``RunConfig.mesh_shape`` under a ``torchrun`` launch,
+parallel/mesh.py): every rank walks the same global batch order (the same
+seed), decides the skips on the whole batch, and pins and copies only its
+own rows. Rank 0 writes the checkpoints, grids and plots and prints; the
+other ranks wait for each save at a barrier. A resume reads the same files
+on every rank. A rank outside the mesh returns at once.
 """
 
 from __future__ import annotations
@@ -26,9 +33,16 @@ import numpy as np
 import torch
 
 from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig
-from attngan_torch.data.dataset import Dataset, pinned_batch, word_mask
+from attngan_torch.core.runtime import resolve_device
+from attngan_torch.data.dataset import (
+    Dataset,
+    pinned_batch,
+    take_rows,
+    word_mask,
+)
 from attngan_torch.data.prefetch import prefetch
 from attngan_torch.infer.sampler import denormalize
+from attngan_torch.parallel.mesh import Mesh, make_mesh
 from attngan_torch.train.checkpoint import (
     latest_checkpoint,
     load_progress_sidecar,
@@ -45,7 +59,12 @@ from attngan_torch.utils.imaging import (
 from attngan_torch.utils.timing import StepTimer, StepWindowProfiler
 
 
-def _maybe_resume(state, directory: str, resume: bool):
+def _printer(mesh: Mesh):
+    """print on rank 0, nothing on the other ranks."""
+    return print if mesh.is_main else (lambda *args, **kwargs: None)
+
+
+def _maybe_resume(state, directory: str, resume: bool, say=print):
     """Exact resume from the newest checkpoint (every module, optimizer
     state, the step and the generator's state) — the reference's per-epoch
     pickles could not resume optimizers at all (Adam name collision,
@@ -58,10 +77,10 @@ def _maybe_resume(state, directory: str, resume: bool):
         return state, 0
     ckpt = latest_checkpoint(directory)
     if ckpt is None:
-        print(f"--resume: no checkpoint under {directory}, starting fresh")
+        say(f"--resume: no checkpoint under {directory}, starting fresh")
         return state, 0
     start_epoch = load_progress_sidecar(directory)
-    print(f"resuming from {ckpt} (epoch {start_epoch} done)")
+    say(f"resuming from {ckpt} (epoch {start_epoch} done)")
     return restore_checkpoint(ckpt, state), start_epoch
 
 
@@ -98,13 +117,17 @@ def _group_superbatches(batches, k: int):
 def _epoch_batches(dataset: Dataset, batch_size: int, seq_len: int,
                    seed: int, device: torch.device,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
-                   superbatch: int = 1):
+                   superbatch: int = 1, mesh: Optional[Mesh] = None):
     """One epoch's batches on ``device``, their host side prepared by the
     prefetch thread: K of them concatenated where ``superbatch`` = K > 1,
     and the rows of ``cache`` (host tensors of cached trunk features) in
-    place of the pixels, which are then not gathered, where it is given."""
-    batches = (b for b in dataset.iter_batches(batch_size, seq_len, seed=seed,
-                                               with_pixels=cache is None)
+    place of the pixels, which are then not gathered, where it is given;
+    this rank's rows of each batch on a mesh of ranks."""
+    rows = mesh.rows(batch_size) if mesh is not None and mesh.size > 1 else None
+    batches = (take_rows(b, rows)
+               for b in dataset.iter_batches(batch_size, seq_len, seed=seed,
+                                             with_pixels=cache is None,
+                                             rows=rows)
                if not _skip_batch(b, batch_size))
     if superbatch > 1:
         batches = _group_superbatches(batches, superbatch)
@@ -136,20 +159,26 @@ def run_damsm_training(
 ):
     """DAMSM pretraining for ``cfg.epochs`` epochs (the GPU unless
     ``device`` says otherwise), from a pretrained trunk state_dict where
-    ``pretrained_cnn`` is given. Returns (trainer, state, loss history)."""
+    ``pretrained_cnn`` is given. Returns (trainer, state, loss history);
+    (None, None, []) on a rank outside the mesh."""
     dataset.build_vocab()
     seq_len = max(dataset.max_seqlen, 1)
+    mesh = make_mesh(cfg.batch_size, run_cfg.mesh_shape,
+                     trainer.device if trainer else resolve_device(device))
+    if mesh is None:
+        return None, None, []
+    say = _printer(mesh)
     if trainer is None:
         trainer = DamsmTrainer(cfg, vocab_size=dataset.vocab.n_words,
-                               seq_len=seq_len, device=device)
+                               seq_len=seq_len, device=device, mesh=mesh)
     start_epoch = 0
     if state is None:
         state = trainer.init_state(run_cfg.seed, pretrained_cnn=pretrained_cnn)
         state, start_epoch = _maybe_resume(
-            state, os.path.join(run_cfg.checkpoint_dir, "damsm"), resume)
+            state, os.path.join(run_cfg.checkpoint_dir, "damsm"), resume, say)
     cache = None
     if cfg.cache_region_features:
-        print("precomputing frozen-trunk region features for "
+        say("precomputing frozen-trunk region features for "
               f"{len(dataset.records)} images ...")
         cache = {k: torch.from_numpy(v) for k, v in
                  trainer.precompute_trunk_features(state, dataset).items()}
@@ -174,12 +203,12 @@ def run_damsm_training(
                else trainer.train_step_super if superbatch > 1
                else trainer.train_step)
     if start_epoch >= cfg.epochs:
-        print(f"--resume: checkpoint already at epoch {start_epoch} >= "
-              f"--epochs {cfg.epochs}; nothing to train")
+        say(f"--resume: checkpoint already at epoch {start_epoch} >= "
+            f"--epochs {cfg.epochs}; nothing to train")
     for epoch in range(start_epoch + 1, cfg.epochs + 1):
         for batch in _epoch_batches(dataset, cfg.batch_size, seq_len,
                                     run_cfg.seed + epoch, trainer.device,
-                                    cache, superbatch):
+                                    cache, superbatch, mesh):
             state, m = step_fn(state, batch)
             pending.append({"loss": m["loss"]})
             # a superbatch call is K steps: the timer counts all K, the
@@ -191,22 +220,22 @@ def run_damsm_training(
             if steps - last_logged >= run_cfg.log_every:
                 last_logged = steps
                 _read_back(pending, metrics)
-                print(f"epoch {epoch} step {len(history)} "
-                      f"loss {history[-1]:.3f} "
-                      f"({timer.steps_per_sec:.2f} steps/s)")
+                say(f"epoch {epoch} step {len(history)} "
+                    f"loss {history[-1]:.3f} "
+                    f"({timer.steps_per_sec:.2f} steps/s)")
         _read_back(pending, metrics)
         # always snapshot the final epoch, even when epochs is not a
         # multiple of checkpoint_every_epochs — otherwise the tail of the
         # run trains and is silently discarded
         if epoch % run_cfg.checkpoint_every_epochs == 0 or epoch == cfg.epochs:
             save_checkpoint(os.path.join(run_cfg.checkpoint_dir, "damsm"),
-                            state, state.step, cfg, epoch=epoch)
-            if history:
+                            state, state.step, cfg, epoch=epoch, mesh=mesh)
+            if history and mesh.is_main:
                 plot_history(history,
                              os.path.join(run_cfg.image_dir,
                                           f"epoch_{epoch}-damsm_loss.png"))
-        print(f"===== epoch {epoch} done; mean loss "
-              f"{np.mean(history[-100:]) if history else float('nan'):.3f} =====")
+        say(f"===== epoch {epoch} done; mean loss "
+            f"{np.mean(history[-100:]) if history else float('nan'):.3f} =====")
     profiler.close()
     return trainer, state, history
 
@@ -224,16 +253,22 @@ def run_gan_training(
 ):
     """GAN training for ``cfg.epochs`` epochs with the DAMSM encoders
     ``rnn`` and ``cnn`` frozen (random without them), on the GPU unless
-    ``device`` says otherwise. Returns (trainer, state, {metric: history})."""
+    ``device`` says otherwise. Returns (trainer, state, {metric: history});
+    (None, None, {}) on a rank outside the mesh."""
     dataset.build_vocab()
+    mesh = make_mesh(cfg.batch_size, run_cfg.mesh_shape,
+                     trainer.device if trainer else resolve_device(device))
+    if mesh is None:
+        return None, None, {}
+    say = _printer(mesh)
     if trainer is None:
         trainer = GanTrainer(cfg, vocab_size=dataset.vocab.n_words,
-                             device=device)
+                             device=device, mesh=mesh)
     start_epoch = 0
     if state is None:
         state = trainer.init_state(run_cfg.seed, rnn=rnn, cnn=cnn)
         state, start_epoch = _maybe_resume(
-            state, os.path.join(run_cfg.checkpoint_dir, "gan"), resume)
+            state, os.path.join(run_cfg.checkpoint_dir, "gan"), resume, say)
 
     losses: Dict[str, list] = defaultdict(list)
     pending: List[Dict[str, torch.Tensor]] = []
@@ -248,11 +283,11 @@ def run_gan_training(
         enabled=run_cfg.profile)
     step_count = 0
     if start_epoch >= cfg.epochs:
-        print(f"--resume: checkpoint already at epoch {start_epoch} >= "
-              f"--epochs {cfg.epochs}; nothing to train")
+        say(f"--resume: checkpoint already at epoch {start_epoch} >= "
+            f"--epochs {cfg.epochs}; nothing to train")
     for epoch in range(start_epoch + 1, cfg.epochs + 1):
         for batch in _epoch_batches(dataset, cfg.batch_size, cfg.seq_len,
-                                    run_cfg.seed + epoch, dev):
+                                    run_cfg.seed + epoch, dev, mesh=mesh):
             last_embed = (batch["tokens"], batch["lengths"])
             state, metrics = trainer.train_step(state, batch)
             pending.append(metrics)
@@ -262,23 +297,23 @@ def run_gan_training(
             if step_count % run_cfg.log_every == 0:
                 _read_back(pending, losses)
                 head = {k: round(v[-1], 3) for k, v in losses.items()}
-                print(f"epoch {epoch} step {step_count} {head} "
-                      f"({timer.steps_per_sec:.2f} steps/s)")
+                say(f"epoch {epoch} step {step_count} {head} "
+                    f"({timer.steps_per_sec:.2f} steps/s)")
         _read_back(pending, losses)
         # per-epoch snapshot (reference train.py:154-162); the final epoch
         # always saves, even when epochs % checkpoint_every_epochs != 0
         if epoch % run_cfg.checkpoint_every_epochs == 0 or epoch == cfg.epochs:
             save_checkpoint(os.path.join(run_cfg.checkpoint_dir, "gan"),
-                            state, state.step, cfg, epoch=epoch)
-            if last_embed is not None:
+                            state, state.step, cfg, epoch=epoch, mesh=mesh)
+            if last_embed is not None and mesh.is_main:
                 _sample_grid(trainer, state, last_embed, fixed_noise,
                              epoch, run_cfg)
             for name in ("g_total", f"d_loss_{cfg.resolutions[-1]}"):
-                if losses.get(name):
+                if losses.get(name) and mesh.is_main:
                     plot_history(losses[name],
                                  os.path.join(run_cfg.image_dir,
                                               f"epoch_{epoch}-{name}.png"))
-        print(f"===== epoch {epoch} done =====")
+        say(f"===== epoch {epoch} done =====")
     profiler.close()
     return trainer, state, dict(losses)
 
@@ -289,8 +324,10 @@ def _sample_grid(trainer: GanTrainer, state: GanState, last_embed,
     """Fixed-noise evaluation grid + word-attention strips of the first
     sample, like reference train.py:154-158 + the attention viewers. The
     eval-mode cascade (``GanTrainer.generate``) leaves the generator in the
-    mode it found it in."""
+    mode it found it in. On a mesh, rank 0 draws it alone from its own
+    rows, the first of the global batch (eval BN takes no collective)."""
     tokens, lengths = last_embed
+    fixed_noise = fixed_noise[:tokens.shape[0]]
     word_embs, sent_embs = trainer.embed_text(state, tokens, lengths)
     mask = word_mask(lengths.to(trainer.device), trainer.cfg.seq_len)
     fakes, attns, _, _ = trainer.generate(

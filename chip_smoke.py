@@ -2035,6 +2035,436 @@ def pretrain_options_phase(torch, card_name: str) -> dict:
     return total
 
 
+# ------------------------------------------------- phase 10: data parallel
+
+DP_RANKS = 2
+DP_LOSS_BATCH = DAMSM_BATCH   # K4 / K6 at 32 x 64 on each rank
+DP_PRETRAIN = ["--synthetic", "128", "--batch-size", "64", "--epochs", "1"]
+# one step an epoch, so that the first step's state is saved on its own
+DP_GAN = ["--synthetic", "16", "--batch-size", "16", "--epochs", "2"]
+DP_STEPS = 2                  # each of the two training calls
+
+
+def dp_loss_inputs(torch, batch: int, seq: int) -> tuple:
+    """The sharded loss's global inputs at full width, the same on every
+    rank (a CPU generator), on the card: img (B, 289, 256), cnn_code,
+    words (B, seq, 256), sent, mask (lengths 1..seq), class ids."""
+    gen = torch.Generator().manual_seed(13 + seq)
+    lengths = torch.randint(1, seq + 1, (batch,), generator=gen)
+    mask = (torch.arange(seq)[None] < lengths[:, None]).to(torch.int32)
+    shapes = ((batch, DAMSM_REGIONS, DAMSM_DIM), (batch, DAMSM_DIM),
+              (batch, seq, DAMSM_DIM), (batch, DAMSM_DIM))
+    img, code, words, sent = (torch.randn(s, generator=gen) for s in shapes)
+    class_ids = torch.randint(0, batch // 2, (batch,), generator=gen)
+    return tuple(t.cuda() for t in (img, code, words, sent, mask, class_ids))
+
+
+DP_LOSS_CASES = (("pretrain", DP_LOSS_BATCH, DAMSM_SEQ),
+                 ("gan_coupling", 16, SEQ_LEN))
+
+
+def dp_loss(torch, mesh, inputs) -> dict:
+    """The DAMSM loss of ``inputs`` and its gradients in img, code, words
+    and sent: sharded over ``mesh`` (this rank's rows, K4 on its images x
+    all texts, K6 in the backward), or in one process with ``mesh`` None
+    (K4 and K5 square)."""
+    from attngan_torch.losses.damsm import damsm_loss
+    from attngan_torch.losses.damsm_sharded import make_sharded_damsm_loss
+    from attngan_torch.parallel.mesh import shard_rows
+
+    img, code, words, sent, mask, class_ids = (shard_rows(t, mesh)
+                                               for t in inputs)
+    diff = [t.clone().requires_grad_() for t in (img, code, words, sent)]
+    b = img.shape[0]
+    first = 0 if mesh is None else mesh.rank * b
+    labels = torch.arange(first, first + b, device="cuda")
+    args = (diff[0], diff[1], diff[2], diff[3], labels, mask, class_ids)
+    if mesh is None:
+        total = damsm_loss(*args, fused=True, attention_maps=False)[0]
+    else:
+        total = make_sharded_damsm_loss(mesh)(*args)[0]
+    total.backward()
+    torch.cuda.synchronize()
+    return {"total": total.detach().cpu(),
+            **{k: t.grad.cpu() for k, t in zip(("img", "code", "words",
+                                                 "sent"), diff)}}
+
+
+def rank_main(job: str, out: str, argv: list) -> int:
+    """One rank of a ``torchrun`` launch (``chip_smoke.py --rank JOB OUT
+    ARGS``): the sharded loss (``loss``) or a CLI's ``main(ARGS)`` in fp32
+    with TF32 off, its launch counts read around it; writes OUT/rank{r}.pt
+    ({launches, seconds, and the loss's values or the CLI's result: the
+    trained state's parts and history, or the benchmark line})."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from attngan_torch.train.checkpoint import state_parts
+
+    counters = kernel_counters()
+    record = {}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {n: c.launches for n, c in counters.items()}, \
+            time.perf_counter() - t0
+
+    if job == "loss":
+        from attngan_torch.parallel.mesh import launched, make_mesh
+
+        with launched() as device:
+            for label, batch, seq in DP_LOSS_CASES:
+                mesh = make_mesh(batch, (DP_RANKS,), device)
+                inputs = dp_loss_inputs(torch, batch, seq)
+                record[label] = counted(lambda: dp_loss(torch, mesh, inputs))
+    else:
+        cli = importlib.import_module(f"attngan_torch.cli.{job}")
+        result, launches, seconds = counted(lambda: cli.main(argv))
+        if job == "infer":
+            record["result"] = result
+        else:
+            _, state, history = result
+            record["result"] = {"parts": state_parts(state),
+                                "history": history}
+        record["launches"], record["seconds"] = launches, seconds
+    torch.save(record, os.path.join(out, f"rank{os.environ['RANK']}.pt"))
+    return 0
+
+
+def torchrun(job: str, out: str, argv: list, ranks: int = DP_RANKS) -> tuple:
+    """Run ``job`` under ``torchrun --standalone --nproc-per-node ranks``;
+    returns (each rank's record, rank 0's standard output)."""
+    import torch
+
+    os.makedirs(out, exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ranks), os.path.abspath(__file__),
+         "--rank", job, out, *argv],
+        capture_output=True, text=True, timeout=600)
+    fail_unless(proc.returncode == 0,
+                f"torchrun {job}: exit {proc.returncode}\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(ranks)], proc.stdout
+
+
+def norm_rel(a, b) -> float:
+    """||a - b|| / ||b||, fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def worst_rel(a, b, where: str = "") -> tuple:
+    """(largest ``norm_rel`` over the float tensors of two saved states,
+    where); second moments at their gradient's scale (square roots)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if not a.is_floating_point() or a.numel() == 0:
+            return 0.0, where
+        if where.endswith("exp_avg_sq"):
+            a, b = a.sqrt(), b.sqrt()
+        return norm_rel(a, b), where
+    pairs = (a.items() if isinstance(a, dict) else
+             enumerate(a) if isinstance(a, (list, tuple)) else [])
+    worst = (0.0, where)
+    for k, v in pairs:
+        worst = max(worst, worst_rel(v, b[k], f"{where}.{k}"))
+    return worst
+
+
+def gan_held(parts: dict) -> dict:
+    """What a GAN state check holds across devices (gan_fp32_vs_cpu's
+    rule): the gradients, as the four Adams' moments, the BN statistics and
+    the frozen encoders; not the updated weights, which Adam moves by about
+    +-lr whatever their gradient's size, the sign deciding where the
+    gradient lies within rounding of 0."""
+    out = {k: v for k, v in parts.items() if k not in ("gen", "discs")}
+    for k in ("gen", "discs"):
+        out[k] = {n: t for n, t in parts[k].items() if "running_" in n}
+    return out
+
+
+def time_sharded_kernels(torch, card_name: str) -> dict:
+    """K4 and K6 timed at the shapes each rank gives them (32 x 64 at 8
+    words, 8 x 16 at 5), beside their plain versions and bounds (phase 2's
+    rules). Returns {label: {kernel: line}}."""
+    from attngan_torch.ops.cuda_damsm import (
+        damsm_similarity,
+        damsm_similarity_bwd_tiled,
+    )
+    from attngan_torch.ops.damsm_similarity import (
+        similarity_bwd_plain,
+        similarity_plain,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(17)
+    out = {}
+    for label, batch, seq in DP_LOSS_CASES:
+        bi, bt = batch // DP_RANKS, batch
+        img, words, mask, g = damsm_inputs(torch, gen, bi, bt, seq=seq)
+        pair_flops = 2 * seq * DAMSM_DIM * DAMSM_REGIONS
+        grads = damsm_similarity_bwd_tiled(img, words, mask, g)
+        sims = damsm_similarity(img, words, mask)
+        cases = {
+            "damsm_similarity": (
+                lambda: damsm_similarity(img, words, mask),
+                lambda: similarity_plain(img, words, mask),
+                nbytes(img, words, mask, sims), 2 * pair_flops * bi * bt),
+            "damsm_similarity_bwd_tiled": (
+                lambda: damsm_similarity_bwd_tiled(img, words, mask, g),
+                lambda: similarity_bwd_plain(img, words, mask, g),
+                nbytes(img, words, mask, g, *grads),
+                6 * pair_flops * bi * bt)}
+        out[label] = {}
+        for name, (fn, plain, moved, flops) in cases.items():
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+            line = {"phase": "data_parallel", "step": "kernel_time",
+                    "kernel": name, "shape": label, "bi": bi, "bt": bt,
+                    "words": seq, "ms": time_ms(fn), "plain_ms":
+                    time_ms(plain), "bound_ms": max(bytes_ms, flops_ms),
+                    "bound_by": "bytes" if bytes_ms >= flops_ms
+                    else "operations", "card": card_name}
+            out[label][name] = line
+            print(json.dumps(line), flush=True)
+    return out
+
+
+def data_parallel_phase(torch, card_name: str) -> dict:
+    """Phase 10: data parallelism on the card, two gloo ranks sharing it
+    (NCCL refuses two ranks on one GPU). (1) The sharded DAMSM loss at
+    full width, global batch 64 at 8 words and the GAN coupling's 16 at 5
+    (K4 at 32 x 64 and 8 x 16 on each rank, K6 in the backward, K5 never:
+    exactly 1, 2 and 0 launches a rank and case), against the loss and
+    gradients of one process (K4 and K5 square) at SIMS_TOL and GRAD_RTOL
+    plus GRAD_ATOL_SHARE of the largest entry (a rank's gradient is 2x its
+    rows' share: the gathers' backward sums both ranks' replicated loss);
+    K4 and K6 timed at those shapes. (2) The CLIs through their own
+    ``--mesh-shape 2`` under ``torchrun --standalone --nproc-per-node 2``,
+    in fp32, chained through their checkpoints: cli.pretrain (128
+    synthetic images, batch 64: 2 steps), cli.train from it (16 at batch
+    16 for 2 epochs: 2 steps, the sharded coupling, rank 0's sample grids)
+    and
+    cli.infer --benchmark at batch 64 from that; and the same chain in
+    this process. Each rank's launches exact; the ranks' trained states
+    equal bit for bit; losses finite and moving, the first step's within
+    STEP_RTOL of the one-process chain's; the states against that chain's
+    in norm per tensor (second moments at their gradient's scale): the
+    pretrain state within STEP_RTOL, the GAN's moments, BN statistics and
+    frozen encoders after its first step (each epoch's save) within
+    GAN_GRAD_RTOL (``gan_held``); seconds and steps/s of each call and img/s
+    of the benchmarks, two ranks on one card beside one process. (3) NCCL
+    at world 1: ``cli.train --mesh-shape 1`` under torchrun, its
+    launches those of one process. Returns {kernel: launches over the
+    phase}."""
+    from attngan_torch.cli import infer, pretrain, train
+    from attngan_torch.train.checkpoint import (
+        diff_parts,
+        load_part,
+        state_parts,
+    )
+
+    counters = kernel_counters()
+    total = {}
+    zero = {name: 0 for name in counters}
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    def expect(what: str, counts: dict, want: dict) -> None:
+        full = dict(zero, **want)
+        fail_unless(counts == full, f"{what}: launches {counts}, expected "
+                    f"{full}")
+        add(counts)
+
+    kernel_times = time_sharded_kernels(torch, card_name)
+    with tempfile.TemporaryDirectory() as d:
+        # (1) the sharded loss against one process
+        ranks, _ = torchrun("loss", f"{d}/loss", [])
+        for label, batch, seq in DP_LOSS_CASES:
+            for c in counters.values():
+                c.launches = 0
+            ref = dp_loss(torch, None, dp_loss_inputs(torch, batch, seq))
+            expect(f"sharded loss {label}, one process",
+                   {n: c.launches for n, c in counters.items()},
+                   {"damsm_similarity": 1, "damsm_similarity_bwd_square": 2})
+            errs = {}
+            for r, record in enumerate(ranks):
+                got, counts, _ = record[label]
+                expect(f"sharded loss {label}, rank {r}", counts,
+                       {"damsm_similarity": 1,
+                        "damsm_similarity_bwd_tiled": 2})
+                torch.testing.assert_close(got["total"], ref["total"],
+                                           **SIMS_TOL)
+                rows = slice(r * batch // DP_RANKS,
+                             (r + 1) * batch // DP_RANKS)
+                for k in ("img", "code", "words", "sent"):
+                    want = ref[k][rows]
+                    torch.testing.assert_close(
+                        got[k] / DP_RANKS, want, rtol=GRAD_RTOL,
+                        atol=GRAD_ATOL_SHARE * float(ref[k].abs().max()),
+                        msg=lambda m: f"sharded loss {label} d_{k}: {m}")
+                    errs[k] = max(errs.get(k, 0.0), float(
+                        (got[k] / DP_RANKS - want).abs().max()))
+            print(json.dumps({
+                "phase": "data_parallel", "step": "sharded_loss",
+                "case": label, "batch": batch, "words": seq,
+                "per_rank": f"{batch // DP_RANKS} x {batch}",
+                "loss": float(ref["total"]),
+                "loss_err": max(abs(float(rec[label][0]["total"]
+                                          - ref["total"])) for rec in ranks),
+                "grad_max_abs_err": errs,
+                "launches_per_rank": ranks[0][label][1],
+                "kernels": kernel_times[label], "card": card_name}),
+                flush=True)
+
+        # (2) the CLI chain: two ranks, then one process
+        def chain_args(root):
+            common = ["--captions-path", f"{root}/caps.json",
+                      "--checkpoint-dir", f"{root}/ckpt", "--image-dir",
+                      f"{root}/img", "--compute-dtype", "float32"]
+            return {"pretrain": DP_PRETRAIN + common,
+                    "train": DP_GAN + common + [
+                        "--damsm-checkpoint", f"{root}/ckpt/damsm"],
+                    "infer": ["--checkpoint", f"{root}/ckpt/gan",
+                              "--benchmark", "--batch-size", "64"]}
+
+        grids = 2 * DP_STEPS          # rank 0's: K1 and K2 twice, 2 epochs
+        want_ranks = {
+            "pretrain": [{"damsm_similarity": DP_STEPS,
+                          "damsm_similarity_bwd_tiled": 2 * DP_STEPS}] * 2,
+            "train": [{"word_attention": 2 * DP_STEPS + grids,
+                       "upblock_fused_eval": grids,
+                       "damsm_similarity": DP_STEPS,
+                       "damsm_similarity_bwd_tiled": 2 * DP_STEPS},
+                      {"word_attention": 2 * DP_STEPS,
+                       "damsm_similarity": DP_STEPS,
+                       "damsm_similarity_bwd_tiled": 2 * DP_STEPS}],
+            "infer": [{"word_attention": 2 * 21,
+                       "upblock_fused_eval": 2 * 21}] * 2}
+        want_one = {
+            "pretrain": {"damsm_similarity": DP_STEPS,
+                         "damsm_similarity_bwd_square": 2 * DP_STEPS},
+            "train": {"word_attention": 2 * DP_STEPS + grids,
+                      "upblock_fused_eval": grids,
+                      "damsm_similarity": DP_STEPS,
+                      "damsm_similarity_bwd_square": 2 * DP_STEPS},
+            "infer": {"word_attention": 2 * 21,
+                      "upblock_fused_eval": 2 * 21}}
+        two, one = chain_args(f"{d}/ranks"), chain_args(f"{d}/one")
+        clis = {"pretrain": pretrain, "train": train, "infer": infer}
+        for job in ("pretrain", "train", "infer"):
+            ranks, stdout = torchrun(job, f"{d}/out_{job}", two[job] +
+                                     ["--mesh-shape", str(DP_RANKS)])
+            fail_unless("backend gloo" in stdout,
+                        f"{job}: no gloo process group in\n{stdout[-2000:]}")
+            for r, record in enumerate(ranks):
+                expect(f"{job} rank {r}", record["launches"],
+                       want_ranks[job][r])
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            result = clis[job].main(one[job])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            expect(f"{job} one process",
+                   {n: c.launches for n, c in counters.items()},
+                   want_one[job])
+            line = {"phase": "data_parallel", "step": "cli_chain",
+                    "cli": job, "ranks_on_one_card": DP_RANKS,
+                    "rank_seconds": [rec["seconds"] for rec in ranks],
+                    "one_process_seconds": seconds,
+                    "launches_per_rank": [rec["launches"] for rec in ranks],
+                    "card": card_name,
+                    "note": "two ranks sharing one card, set-up included: "
+                            "not a scaling figure"}
+            if job == "infer":
+                got = ranks[0]["result"]
+                fail_unless(got["devices"] == DP_RANKS
+                            and result["devices"] == 1,
+                            f"infer devices {got['devices']}, "
+                            f"{result['devices']}")
+                line.update(ranks_img_per_s=got["value"],
+                            ranks_windows=got["windows"],
+                            one_process_img_per_s=result["value"],
+                            one_process_windows=result["windows"])
+            else:
+                parts = [rec["result"]["parts"] for rec in ranks]
+                diff = diff_parts(parts[0], parts[1])
+                fail_unless(not diff, f"{job}: ranks' states differ at "
+                            f"{diff[:5]}")
+                _, state, history = result
+                got_hist = ranks[0]["result"]["history"]
+                series = ({"loss": got_hist} if job == "pretrain"
+                          else got_hist)
+                want_series = ({"loss": history} if job == "pretrain"
+                               else history)
+                metric_rel = {}
+                for key, values in series.items():
+                    fail_unless(len(values) == DP_STEPS
+                                and all(map(math.isfinite, values))
+                                and values[0] != values[-1],
+                                f"{job} {key}: {values}")
+                    rel = [abs(a - b) / abs(b)
+                           for a, b in zip(values, want_series[key])]
+                    # the first step's, from the same state (later steps
+                    # follow Adam's sign flips, which the state check holds)
+                    fail_unless(rel[0] <= STEP_RTOL, f"{job} {key}: first "
+                                f"step {values[0]} vs one process's "
+                                f"{want_series[key][0]}")
+                    metric_rel[key] = rel
+                if job == "pretrain":
+                    worst, where = worst_rel(parts[0], state_parts(state))
+                    fail_unless(worst <= STEP_RTOL, f"pretrain: state "
+                                f"{where} {worst} from one process's")
+                else:
+                    # the first step's state, from the same state on both
+                    # sides (its saved epoch); the second step starts
+                    # from weights that Adam's sign flips moved apart
+                    first = [{name: load_part(ckpt, name)
+                              for name in state_parts(state)}
+                             for ckpt in (f"{root}/ckpt/gan/step_00000001"
+                                          for root in (f"{d}/ranks",
+                                                       f"{d}/one"))]
+                    worst, where = worst_rel(gan_held(first[0]),
+                                             gan_held(first[1]))
+                    fail_unless(worst <= GAN_GRAD_RTOL, f"train: step 1 "
+                                f"state {where} {worst} from one process's")
+                    line["step2_worst_rel"] = worst_rel(
+                        gan_held(parts[0]), gan_held(state_parts(state)))
+                line.update(state_worst_rel=worst, state_worst_at=where,
+                            ranks_steps_per_s=[DP_STEPS / rec["seconds"]
+                                               for rec in ranks],
+                            one_process_steps_per_s=DP_STEPS / seconds,
+                            losses=got_hist, metric_rel_by_step=metric_rel)
+            print(json.dumps(line), flush=True)
+
+        # (3) NCCL at world 1
+        ranks, stdout = torchrun("train", f"{d}/out_nccl",
+                                 chain_args(f"{d}/ranks")["train"][:-2]
+                                 + ["--damsm-checkpoint",
+                                    f"{d}/ranks/ckpt/damsm",
+                                    "--checkpoint-dir", f"{d}/nccl",
+                                    "--mesh-shape", "1"], ranks=1)
+        fail_unless("backend nccl" in stdout,
+                    f"--mesh-shape 1: no NCCL process group in\n"
+                    f"{stdout[-2000:]}")
+        expect("NCCL world 1", ranks[0]["launches"], want_one["train"])
+        print(json.dumps({"phase": "data_parallel", "step": "nccl_world_1",
+                          "seconds": ranks[0]["seconds"],
+                          "launches": ranks[0]["launches"],
+                          "card": card_name}), flush=True)
+    return total
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -2255,6 +2685,8 @@ def profile_pretrain(torch, trainer, state, batch, card_name: str) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -2321,11 +2753,13 @@ def main() -> int:
     lap("captioner")
     options_launches = pretrain_options_phase(torch, card_name)
     lap("pretrain_options")
+    dp_launches = data_parallel_phase(torch, card_name)
+    lap("data_parallel")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     # launches summed over every path: serving, pretrain, GAN step, loops,
-    # captioner, pretrain options
+    # captioner, pretrain options, data parallel (every rank's)
     for counted in (damsm_launches, gan_launches, loop_launches,
-                    captioner_launches, options_launches):
+                    captioner_launches, options_launches, dp_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -354,8 +354,7 @@ def test_infer_defaults_to_the_gan_checkpoint_dir(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("cli,flag", [
-    (pretrain, "--trunk-int8"), (infer, "--export"),
-    (train, "--mesh-shape"), (infer, "--int8")])
+    (pretrain, "--trunk-int8"), (infer, "--export"), (infer, "--int8")])
 def test_flags_of_later_slices_are_refused(cli, flag, capsys):
     with pytest.raises(SystemExit):
         cli.parse_args([flag])

@@ -664,7 +664,7 @@ def test_cli_refuses_a_pretrained_cnn_for_the_tiny_encoder(tmp_path, inception):
         _cli(tmp_path, "--pretrained-cnn", inception[0])
 
 
-@pytest.mark.parametrize("flag", ["--trunk-int8", "--mesh-shape"])
+@pytest.mark.parametrize("flag", ["--trunk-int8"])
 def test_cli_still_refuses_later_slices(capsys, flag):
     with pytest.raises(SystemExit):
         pretrain.parse_args([flag])
