@@ -54,8 +54,9 @@ and writes a port checkpoint directory, ``DIR/step_*/<part>.pt`` with
 ``config.json`` and ``progress.json``: an InferState's ``rnn.pt`` and
 ``gen.pt``, which ``cli.infer --checkpoint DIR`` serves, or a whole
 DamsmState or GanState, which ``cli.train --damsm-checkpoint DIR`` and
-``--resume`` read. The port's ``torch.Generator`` of the state starts from
-``--seed`` (JAX's PRNG key has no counterpart).
+``--resume`` read. A converted state has no ``generator.pt`` (JAX's PRNG
+key has no counterpart): the torch generator restarts from the training
+CLI's ``--seed`` at the first ``--resume``.
 
 A pretrained trunk (``--pretrained-cnn``) is read from the torchvision
 Inception-v3 ``.pth`` itself by ``load_pretrained_trunk``: the port's trunk
@@ -69,6 +70,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 from typing import Dict, Mapping
 
@@ -530,9 +532,9 @@ def _port_config(cls, recorded: Mapping[str, object]):
                   if k in names and not k.startswith("fused")})
 
 
-def write_checkpoint(npz_path: str, out: str, seed: int = 0) -> str:
+def write_checkpoint(npz_path: str, out: str) -> str:
     """The port checkpoint directory ``out`` of an ``export_jax_state.py``
-    file; returns the step's path."""
+    file, without the state's generator; returns the step's path."""
     from attngan_torch.core.config import DamsmConfig, GanConfig
     from attngan_torch.train.checkpoint import save_checkpoint
 
@@ -552,20 +554,22 @@ def write_checkpoint(npz_path: str, out: str, seed: int = 0) -> str:
 
         cfg = _port_config(DamsmConfig, meta["config"])
         state = DamsmTrainer(cfg, vocab, seq_len=1,
-                             device="cpu").init_state(seed)
+                             device="cpu").init_state(0)
         load_damsm_flat(flat, state)
         step = state.step
     elif kind == "gan":
         from attngan_torch.train.gan_trainer import GanTrainer
 
         cfg = _port_config(GanConfig, meta["config"])
-        state = GanTrainer(cfg, vocab, device="cpu").init_state(seed)
+        state = GanTrainer(cfg, vocab, device="cpu").init_state(0)
         load_gan_flat(flat, state)
         step = state.step
     else:
         raise ValueError(f"{npz_path}: unknown state kind {kind!r}")
-    return save_checkpoint(out, state, step, cfg,
-                           epoch=meta.get("epoch", 0))
+    path = save_checkpoint(out, state, step, cfg, epoch=meta.get("epoch", 0))
+    if kind != "infer":
+        os.remove(os.path.join(path, "generator.pt"))
+    return path
 
 
 def main(argv=None) -> str:
@@ -575,11 +579,8 @@ def main(argv=None) -> str:
                     "checkpoint directory (DIR/step_*/<part>.pt).")
     p.add_argument("npz", help="the file export_jax_state.py wrote")
     p.add_argument("--out", required=True, help="the checkpoint directory")
-    p.add_argument("--seed", type=int, default=0,
-                   help="seed of the state's torch.Generator (JAX's PRNG "
-                        "key has no counterpart)")
     args = p.parse_args(argv)
-    path = write_checkpoint(args.npz, args.out, args.seed)
+    path = write_checkpoint(args.npz, args.out)
     print(f"wrote {path}")
     return path
 

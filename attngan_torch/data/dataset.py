@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -193,16 +193,16 @@ class Dataset:
         drop_ragged: bool = True,
         with_pixels: bool = True,
         rows: Optional[slice] = None,
+        keep: Optional[Callable[[Dict[str, np.ndarray]], bool]] = None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yields static-shape host batches; ``device_batch`` moves one to
         the device and builds its pyramid there. Ragged final batches are
         dropped like the reference's `len(words) < BATCH_SIZE` skip
         (train.py:112-113). ``with_pixels=False`` leaves out the pixels
         and flips (a batch of cached trunk features does not read them).
-        ``rows`` (a data-parallel rank's share): the pixels and flips are
-        those rows' only, and the rest stays the whole batch's, so that
-        every rank decides on the whole batch (``take_rows`` then cuts
-        it)."""
+        ``keep`` decides on the whole batch, before its pixels are read,
+        whether it is yielded; ``rows`` (a data-parallel rank's share) then
+        cuts it to those rows, so that every rank decides alike."""
         self.build_vocab()
         max_seqlen = max_seqlen or self.max_seqlen
         order = np.arange(len(self.records))
@@ -225,8 +225,12 @@ class Dataset:
                     np.int32,
                 ),
             }
+            if keep is not None and not keep(batch):
+                continue
+            if rows is not None:
+                recs = recs[rows]
+                batch = {k: v[rows] for k, v in batch.items()}
             if with_pixels:
-                recs = recs if rows is None else recs[rows]
                 batch.update(pixels=self._batch_pixels(recs),
                              flip=np.asarray([r.flip for r in recs], bool))
             yield batch
@@ -284,16 +288,6 @@ class Dataset:
             out.update(img64=pyramid[64], img128=pyramid[128],
                        img256=pyramid[256])
         return out
-
-
-def take_rows(host_batch: Dict[str, np.ndarray], rows: Optional[slice]
-              ) -> Dict[str, np.ndarray]:
-    """A host batch of ``iter_batches(rows=rows)`` cut to those rows (its
-    pixels and flips are already)."""
-    if rows is None:
-        return host_batch
-    return {k: v if k in ("pixels", "flip") else v[rows]
-            for k, v in host_batch.items()}
 
 
 def pinned_batch(host_batch: Dict[str, np.ndarray],

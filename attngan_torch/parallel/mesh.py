@@ -38,9 +38,6 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-DATA_AXIS = "data"
-SLICE_AXIS = "slice"   # outer axis of a 2-D mesh
-
 
 def init_distributed(device: str | torch.device | None = None
                      ) -> Optional[torch.device]:
@@ -136,11 +133,6 @@ class Mesh:
         return n
 
     @property
-    def axis_names(self) -> Tuple[str, ...]:
-        return (DATA_AXIS,) if len(self.shape) == 1 else (SLICE_AXIS,
-                                                          DATA_AXIS)
-
-    @property
     def is_main(self) -> bool:
         """Rank 0: the one that writes files and prints."""
         return self.rank == 0
@@ -181,8 +173,8 @@ def make_mesh(batch: int, shape: Tuple[int, ...] = (),
               flush=True)
         return None
     if rank == 0 and n > 1:
-        print(f"data parallel over {n} ranks (mesh axes "
-              f"{Mesh(shape, 0).axis_names}, shape {shape})", flush=True)
+        print(f"data parallel over {n} ranks (mesh shape {shape})",
+              flush=True)
     return Mesh(shape, rank, group, device)
 
 

@@ -179,11 +179,16 @@ def restore_checkpoint(path: str, state: Any) -> Any:
     built by the trainer's ``init_state``: every module, every optimizer
     (the parameters in the order the trainer built it with), the
     generator's state and the step; the caches (the folded trunk) are
-    dropped, to be rebuilt from the restored weights at first use.
+    dropped, to be rebuilt from the restored weights at first use. A
+    checkpoint without ``generator.pt`` (one converted from a JAX state)
+    leaves the state's generator as ``init_state`` seeded it.
     Returns ``state``."""
     for f in dataclasses.fields(state):
         if f.name in CACHES:
             setattr(state, f.name, None)
+            continue
+        if (isinstance(getattr(state, f.name), torch.Generator)
+                and not os.path.exists(os.path.join(path, f"{f.name}.pt"))):
             continue
         setattr(state, f.name, _restore(getattr(state, f.name),
                                         load_part(path, f.name), f.name))

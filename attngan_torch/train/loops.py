@@ -34,12 +34,7 @@ import torch
 
 from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig
 from attngan_torch.core.runtime import resolve_device
-from attngan_torch.data.dataset import (
-    Dataset,
-    pinned_batch,
-    take_rows,
-    word_mask,
-)
+from attngan_torch.data.dataset import Dataset, pinned_batch, word_mask
 from attngan_torch.data.prefetch import prefetch
 from attngan_torch.infer.sampler import denormalize
 from attngan_torch.parallel.mesh import Mesh, make_mesh
@@ -124,11 +119,9 @@ def _epoch_batches(dataset: Dataset, batch_size: int, seq_len: int,
     place of the pixels, which are then not gathered, where it is given;
     this rank's rows of each batch on a mesh of ranks."""
     rows = mesh.rows(batch_size) if mesh is not None and mesh.size > 1 else None
-    batches = (take_rows(b, rows)
-               for b in dataset.iter_batches(batch_size, seq_len, seed=seed,
-                                             with_pixels=cache is None,
-                                             rows=rows)
-               if not _skip_batch(b, batch_size))
+    batches = dataset.iter_batches(
+        batch_size, seq_len, seed=seed, with_pixels=cache is None, rows=rows,
+        keep=lambda b: not _skip_batch(b, batch_size))
     if superbatch > 1:
         batches = _group_superbatches(batches, superbatch)
     for host in prefetch(batches, lambda b: pinned_batch(b, device, cache)):

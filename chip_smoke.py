@@ -146,6 +146,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2191,10 +2192,17 @@ def gan_held(parts: dict) -> dict:
     return out
 
 
+# K4 / K6 checked and timed at each rank's shapes: the sharded loss's two
+# cases and cli.pretrain's synthetic captions (two words)
+DP_KERNEL_CASES = DP_LOSS_CASES + (("cli_pretrain", DP_LOSS_BATCH, 2),)
+
+
 def time_sharded_kernels(torch, card_name: str) -> dict:
-    """K4 and K6 timed at the shapes each rank gives them (32 x 64 at 8
-    words, 8 x 16 at 5), beside their plain versions and bounds (phase 2's
-    rules). Returns {label: {kernel: line}}."""
+    """K4 and K6 at the shapes each rank gives them (32 x 64 at 8 words,
+    8 x 16 at 5, 32 x 64 at 2), against their plain versions at SIMS_TOL
+    and GRAD_RTOL plus GRAD_ATOL_SHARE of the largest entry, and timed
+    beside them with their bounds (phase 2's rules, ``tc_bound_ms`` too).
+    Returns {label: {kernel: line}}."""
     from attngan_torch.ops.cuda_damsm import (
         damsm_similarity,
         damsm_similarity_bwd_tiled,
@@ -2206,34 +2214,109 @@ def time_sharded_kernels(torch, card_name: str) -> dict:
 
     gen = torch.Generator("cuda").manual_seed(17)
     out = {}
-    for label, batch, seq in DP_LOSS_CASES:
+    for label, batch, seq in DP_KERNEL_CASES:
         bi, bt = batch // DP_RANKS, batch
         img, words, mask, g = damsm_inputs(torch, gen, bi, bt, seq=seq)
         pair_flops = 2 * seq * DAMSM_DIM * DAMSM_REGIONS
         grads = damsm_similarity_bwd_tiled(img, words, mask, g)
         sims = damsm_similarity(img, words, mask)
+        want = similarity_plain(img, words, mask)
+        want_grads = similarity_bwd_plain(img, words, mask, g)
+        torch.testing.assert_close(
+            sims, want, **SIMS_TOL,
+            msg=lambda m: f"damsm_similarity {label}: {m}")
+        for got, ref in zip(grads, want_grads):
+            torch.testing.assert_close(
+                got, ref, rtol=GRAD_RTOL,
+                atol=GRAD_ATOL_SHARE * float(ref.abs().max()),
+                msg=lambda m: f"damsm_similarity_bwd_tiled {label}: {m}")
         cases = {
             "damsm_similarity": (
                 lambda: damsm_similarity(img, words, mask),
                 lambda: similarity_plain(img, words, mask),
-                nbytes(img, words, mask, sims), 2 * pair_flops * bi * bt),
+                nbytes(img, words, mask, sims), 2 * pair_flops * bi * bt,
+                float((sims - want).abs().max())),
             "damsm_similarity_bwd_tiled": (
                 lambda: damsm_similarity_bwd_tiled(img, words, mask, g),
                 lambda: similarity_bwd_plain(img, words, mask, g),
                 nbytes(img, words, mask, g, *grads),
-                6 * pair_flops * bi * bt)}
+                6 * pair_flops * bi * bt,
+                max(float((a - b).abs().max())
+                    for a, b in zip(grads, want_grads)))}
         out[label] = {}
-        for name, (fn, plain, moved, flops) in cases.items():
+        for name, (fn, plain, moved, flops, err) in cases.items():
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             flops_ms = flops / FP32_FLOPS_PER_S * 1e3
-            line = {"phase": "data_parallel", "step": "kernel_time",
+            line = {"phase": "data_parallel", "step": "kernel_check",
                     "kernel": name, "shape": label, "bi": bi, "bt": bt,
-                    "words": seq, "ms": time_ms(fn), "plain_ms":
-                    time_ms(plain), "bound_ms": max(bytes_ms, flops_ms),
+                    "words": seq, "max_abs_err": err, "ms": time_ms(fn),
+                    "plain_ms": time_ms(plain),
+                    "bound_ms": max(bytes_ms, flops_ms),
                     "bound_by": "bytes" if bytes_ms >= flops_ms
-                    else "operations", "card": card_name}
+                    else "operations",
+                    "tc_bound_ms": max(
+                        bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3),
+                    "card": card_name}
             out[label][name] = line
             print(json.dumps(line), flush=True)
+    return out
+
+
+def second_step(torch, root: str, args: list, ranks_parts: dict,
+                one_state, expect) -> dict:
+    """The GAN's second step under the mesh, held from one state: one
+    process resumes the ranks' first save (``root``/ranks) and takes the
+    second step (``args``: the one-process cli.train call), whose state
+    (``gan_held``) must lie within GAN_GRAD_RTOL of the ranks' second
+    (``ranks_parts``), as their first steps do; ``expect(what, counts)``
+    checks its launches (one step and an epoch's grid). Beside it, read
+    only: the ranks' second step against the one-process chain's
+    (``one_state``), each from its own first step, and a witness of one
+    process against itself: the same chain with cuDNN's deterministic
+    algorithms and with its autotuned ones, their first and second
+    steps."""
+    from attngan_torch.cli import train
+    from attngan_torch.train.checkpoint import load_part, state_parts
+
+    counters = kernel_counters()
+    again = f"{root}/again/gan"
+    shutil.copytree(f"{root}/ranks/ckpt/gan/step_00000001",
+                    f"{again}/step_00000001")
+    shutil.copy(f"{root}/ranks/ckpt/gan/config.json", again)
+    with open(f"{again}/progress.json", "w") as f:
+        json.dump({"epoch": 1, "step": 1}, f)
+    for c in counters.values():
+        c.launches = 0
+    _, resumed, _ = train.main(args + [
+        "--checkpoint-dir", f"{root}/again", "--image-dir",
+        f"{root}/again_img", "--resume"])
+    torch.cuda.synchronize()
+    expect("train: the second step resumed in one process",
+           {n: c.launches for n, c in counters.items()})
+    worst, where = worst_rel(gan_held(ranks_parts),
+                             gan_held(state_parts(resumed)))
+    fail_unless(worst <= GAN_GRAD_RTOL, f"train: the ranks' second step "
+                f"{where} {worst} from one process's from the same state")
+    out = {"step2_from_one_state_worst_rel": [worst, where],
+           "step2_worst_rel": worst_rel(gan_held(ranks_parts),
+                                        gan_held(state_parts(one_state)))}
+    one_first = {name: load_part(f"{root}/one/ckpt/gan/step_00000001", name)
+                 for name in state_parts(one_state)}
+    for flag in ("deterministic", "benchmark"):
+        setattr(torch.backends.cudnn, flag, True)
+        try:
+            _, state, _ = train.main(args + [
+                "--checkpoint-dir", f"{root}/{flag}", "--image-dir",
+                f"{root}/{flag}_img"])
+        finally:
+            setattr(torch.backends.cudnn, flag, False)
+        first = {name: load_part(f"{root}/{flag}/gan/step_00000001", name)
+                 for name in one_first}
+        out[f"witness_cudnn_{flag}"] = {
+            "step1_worst_rel": worst_rel(gan_held(first),
+                                         gan_held(one_first)),
+            "step2_worst_rel": worst_rel(gan_held(state_parts(state)),
+                                         gan_held(state_parts(one_state)))}
     return out
 
 
@@ -2246,7 +2329,8 @@ def data_parallel_phase(torch, card_name: str) -> dict:
     gradients of one process (K4 and K5 square) at SIMS_TOL and GRAD_RTOL
     plus GRAD_ATOL_SHARE of the largest entry (a rank's gradient is 2x its
     rows' share: the gathers' backward sums both ranks' replicated loss);
-    K4 and K6 timed at those shapes. (2) The CLIs through their own
+    K4 and K6 alone against their plain versions and timed at those shapes
+    and at cli.pretrain's 32 x 64 at 2 words. (2) The CLIs through their own
     ``--mesh-shape 2`` under ``torchrun --standalone --nproc-per-node 2``,
     in fp32, chained through their checkpoints: cli.pretrain (128
     synthetic images, batch 64: 2 steps), cli.train from it (16 at batch
@@ -2259,7 +2343,8 @@ def data_parallel_phase(torch, card_name: str) -> dict:
     in norm per tensor (second moments at their gradient's scale): the
     pretrain state within STEP_RTOL, the GAN's moments, BN statistics and
     frozen encoders after its first step (each epoch's save) within
-    GAN_GRAD_RTOL (``gan_held``); seconds and steps/s of each call and img/s
+    GAN_GRAD_RTOL (``gan_held``), and so after its second when one process
+    takes it from the ranks' first save (``second_step``); seconds and steps/s of each call and img/s
     of the benchmarks, two ranks on one card beside one process. (3) NCCL
     at world 1: ``cli.train --mesh-shape 1`` under torchrun, its
     launches those of one process. Returns {kernel: launches over the
@@ -2438,8 +2523,13 @@ def data_parallel_phase(torch, card_name: str) -> dict:
                                              gan_held(first[1]))
                     fail_unless(worst <= GAN_GRAD_RTOL, f"train: step 1 "
                                 f"state {where} {worst} from one process's")
-                    line["step2_worst_rel"] = worst_rel(
-                        gan_held(parts[0]), gan_held(state_parts(state)))
+                    line.update(second_step(
+                        torch, d, one["train"], parts[0], state,
+                        lambda what, counts: expect(what, counts, {
+                            "word_attention": 2 + 2,
+                            "upblock_fused_eval": 2,
+                            "damsm_similarity": 1,
+                            "damsm_similarity_bwd_square": 2})))
                 line.update(state_worst_rel=worst, state_worst_at=where,
                             ranks_steps_per_s=[DP_STEPS / rec["seconds"]
                                                for rec in ranks],

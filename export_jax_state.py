@@ -24,9 +24,9 @@ The port turns the file into one of its checkpoint directories::
 after which ``python -m attngan_torch.cli.infer --checkpoint port_ckpt/gan``
 serves it, ``cli.train --damsm-checkpoint`` reads an exported DamsmState,
 and ``--resume`` continues an exported DamsmState or GanState. JAX's PRNG
-key has no counterpart in the port: its ``torch.Generator`` (dropout,
-noise, eps and labels) restarts from ``python -m attngan_torch.convert
---seed``.
+key has no counterpart in the port: the converted checkpoint holds no
+``torch.Generator`` (dropout, noise, eps and labels), which restarts from
+the training CLI's ``--seed`` at the first ``--resume``.
 """
 
 from __future__ import annotations

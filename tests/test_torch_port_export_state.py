@@ -192,6 +192,23 @@ def test_resumed_damsm_step_equals_the_helper_step(exported):
     assert diff_parts(state_parts(resumed), state_parts(helper)) == []
 
 
+@pytest.mark.parametrize("kind", ["damsm", "gan"])
+def test_converted_state_takes_its_generator_from_the_seed(exported, kind):
+    """JAX's PRNG key has no counterpart: the converted step holds no
+    generator, and a resume keeps the one ``init_state(seed)`` made."""
+    _, _, port = exported[kind]
+    ckpt = latest_checkpoint(port)
+    assert "generator.pt" not in os.listdir(ckpt)
+    trainer = (DamsmTrainer(DamsmConfig(**DAMSM), VOCAB, L, device="cpu")
+               if kind == "damsm" else
+               GanTrainer(GanConfig(**GAN), VOCAB, device="cpu"))
+    resumed = restore_checkpoint(ckpt, trainer.init_state(seed=7))
+    want = trainer.init_state(seed=7).generator.get_state()
+    assert torch.equal(resumed.generator.get_state(), want)
+    assert not torch.equal(trainer.init_state(seed=0).generator.get_state(),
+                           want)
+
+
 def test_convert_runs_as_a_module(exported, tmp_path):
     _, npz, _ = exported["infer"]
     out = subprocess.run(
