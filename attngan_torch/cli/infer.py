@@ -14,8 +14,19 @@ measures throughput (--benchmark) or writes PNGs for the --image-names
 entries, captioned from the captions JSON: the final
 stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
-first two captions (--swap). The JAX CLI's --int8 and --export* are
-later slices of the port: argparse refuses them.
+first two captions (--swap).
+
+--int8 serves the generator's Conv / Dense sites in int8
+(infer/quantize.py: weights per output channel, activation scales
+calibrated on the first batch at --int8-percentile; K1 and K2 stay on the
+path, float), the final stage only. --export PATH writes a serving
+artifact (infer/export.py: one torch.export program per platform of
+--export-platforms, the weights in it, the batch symbolic unless
+--export-batch fixes it) and exits; serve it with
+``attngan_torch.infer.export.ExportedSampler``. The artifact is the plain
+path, so --export refuses an explicit --fused-upsample other than off.
+With --int8 it is the int8 tier, calibrated here on --batch-size captions
+of the captions JSON.
 
 Under ``torchrun`` the ranks serve one batch together (JAX's
 data-parallel inference; --mesh-shape as the JAX CLI takes it): every
@@ -28,6 +39,9 @@ Examples:
   python -m attngan_torch.cli.infer --captions-path data/caps.json \
       --checkpoint checkpoints/gan --image-names imgA imgB --swap 1 \
       --all-stages --save-attention --out out/
+  python -m attngan_torch.cli.infer --int8 --benchmark --batch-size 64
+  python -m attngan_torch.cli.infer --checkpoint checkpoints/gan \
+      --captions-path data/caps.json --export serve.zip --int8
   torchrun --standalone --nproc-per-node 2 -m attngan_torch.cli.infer \
       --benchmark --batch-size 64 --mesh-shape 2
 """
@@ -77,12 +91,32 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("--fused-upsample", default="pallas",
+    p.add_argument("--fused-upsample", default=None,
                    choices=["pallas", "packed", "packed64", "off"],
-                   help="eval UpBlock route at >=64^2: 'pallas' = the K2 "
-                        "kernel (any dims), 'packed' = the Ci=64->Co=32 "
-                        "K3 kernel where the dims fit, 'packed64' = K3 only "
-                        "at 64^2, 'off' = plain upsample + conv")
+                   help="eval UpBlock route at >=64^2: 'pallas' (the "
+                        "default) = the K2 kernel (any dims), 'packed' = "
+                        "the Ci=64->Co=32 K3 kernel where the dims fit, "
+                        "'packed64' = K3 only at 64^2, 'off' = plain "
+                        "upsample + conv")
+    p.add_argument("--int8-percentile", type=float, default=99.0,
+                   help="int8 activation-scale calibration percentile "
+                        "(100 = the max; 99, JAX's measured default, clips "
+                        "the rare activation spikes that coarsen the grid)")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the generator through post-training int8 "
+                        "quantization; calibrates on the first batch")
+    p.add_argument("--export", metavar="PATH", default="",
+                   help="write a serving artifact (torch.export programs, "
+                        "the weights in them) to PATH and exit; serve it "
+                        "with attngan_torch.infer.export.ExportedSampler. "
+                        "With --int8: the int8 tier, calibrated on "
+                        "--batch-size captions of the captions JSON")
+    p.add_argument("--export-platforms", default="cuda,cpu",
+                   help="comma-separated platforms for --export, one "
+                        "program each (default both)")
+    p.add_argument("--export-batch", type=int, default=0,
+                   help="fixed batch size for --export; 0 = a symbolic "
+                        "batch (one artifact, any request size)")
     p.add_argument("--benchmark", action="store_true")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
@@ -99,8 +133,8 @@ def parse_args(argv=None):
 def _config(args):
     from attngan_torch.core.config import GanConfig
 
-    mode = {"pallas": True, "off": False}.get(args.fused_upsample,
-                                              args.fused_upsample)
+    mode = {None: True, "pallas": True, "off": False}.get(
+        args.fused_upsample, args.fused_upsample)
     shapes = {k: getattr(args, k) for k in SHAPE_FLAGS
               if getattr(args, k) is not None}
     return GanConfig(compute_dtype=args.compute_dtype, fused_upsample=mode,
@@ -236,7 +270,8 @@ def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
             "batch_size": args.batch_size, "device": device,
             "devices": 1 if sampler.mesh is None else sampler.mesh.size,
             "compute_dtype": cfg.compute_dtype,
-            "fused_upsample": cfg.fused_upsample}
+            "fused_upsample": cfg.fused_upsample,
+            "int8": bool(args.int8)}
 
 
 def _host_images(images) -> list:
@@ -288,12 +323,54 @@ def _write_images(sampler, handler, args) -> list:
     return [path for path, _, _ in written]
 
 
+def _export(args, cfg, shapes, handler, device) -> str:
+    """--export: the artifact at args.export; returns its path."""
+    from attngan_torch.infer.export import (
+        save_exported_int8_sampler,
+        save_exported_sampler,
+    )
+
+    state = _load_state(args, cfg, shapes, handler)
+    platforms = [s.strip() for s in args.export_platforms.split(",")
+                 if s.strip()]
+    batch = args.export_batch or None
+    if args.int8:
+        captions = list(handler.img2caption.values()) if handler else []
+        if not captions:
+            raise SystemExit("--export --int8 calibrates on the captions "
+                             f"JSON ({args.captions_path}), which is empty "
+                             "or missing")
+        reps = -(-args.batch_size // len(captions))
+        tokens, lengths = handler.preprocess(
+            (captions * reps)[: args.batch_size],
+            max_seqlen=state.cfg.seq_len)
+        n = save_exported_int8_sampler(
+            args.export, state, tokens, lengths, platforms=platforms,
+            batch_size=batch, percentile=args.int8_percentile,
+            calib_seed=args.seed, device=device)
+    else:
+        n = save_exported_sampler(args.export, state, platforms=platforms,
+                                  batch_size=batch)
+    print(f"wrote {args.export} ({n:,} bytes, platforms "
+          f"{','.join(platforms)}, int8 {args.int8}, batch "
+          f"{batch or 'symbolic'})")
+    return args.export
+
+
 def main(argv=None):
-    """Returns the benchmark's result, or the paths of the PNGs written
-    (on a rank other than 0: None, or no paths)."""
+    """Returns the benchmark's result, the paths of the PNGs written (on a
+    rank other than 0: None, or no paths), or the artifact's path."""
     args = parse_args(argv)
-    if not args.benchmark and not args.image_names:
-        raise SystemExit("pass --image-names (or --benchmark)")
+    if not args.benchmark and not args.image_names and not args.export:
+        raise SystemExit("pass --image-names (or --benchmark / --export)")
+    if args.export and args.fused_upsample not in (None, "off"):
+        # the artifact is the plain path (JAX refuses its Pallas flags
+        # with --export too)
+        raise SystemExit("--export writes the plain path; drop "
+                         "--fused-upsample")
+    if args.int8 and (args.all_stages or args.save_attention):
+        raise SystemExit("--int8 serves the final-stage path only; drop "
+                         "--all-stages/--save-attention")
     from attngan_torch.parallel.mesh import launched
 
     with launched(args.device) as device:
@@ -309,12 +386,24 @@ def _main(args, device):
     if args.image_names or os.path.exists(args.captions_path):
         handler = CaptionHandler(args.captions_path)
     cfg, shapes = _config(args)
+    if args.export:
+        from attngan_torch.parallel.mesh import global_rank
+
+        # one artifact: under torchrun rank 0 writes it
+        return _export(args, cfg, shapes, handler, device) \
+            if global_rank() == 0 else None
     n_items = args.batch_size if args.benchmark else len(args.image_names)
     mesh = make_mesh(n_items, tuple(args.mesh_shape), device or "cuda")
     if mesh is None:
         return None
     state = _load_state(args, cfg, shapes, handler)
-    sampler = Sampler(state, device=device, mesh=mesh)
+    if args.int8:
+        from attngan_torch.infer.quantize import Int8Sampler
+
+        sampler = Int8Sampler(state, device=device, mesh=mesh,
+                              percentile=args.int8_percentile)
+    else:
+        sampler = Sampler(state, device=device, mesh=mesh)
 
     if args.benchmark:
         result = _benchmark(sampler, args)

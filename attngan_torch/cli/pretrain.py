@@ -17,13 +17,13 @@ vocabulary.
 The JAX CLI's pretrain options are here: --cache-features (the frozen
 trunk's features computed once, the steps trained against them),
 --superbatch K (one trunk forward for K steps), --trunk-train-mode-bn (the
-reference's train-mode trunk BatchNorm) and --pretrained-cnn (a
+reference's train-mode trunk BatchNorm), --trunk-int8 (the frozen trunk's
+convs in int8, calibrated on the first batch) and --pretrained-cnn (a
 torchvision Inception-v3 .pth, read by name: no conversion step).
 
 --data-root decodes images with the native JPEG loader or Pillow; the
 synthetic path needs neither Pillow nor matplotlib, and --cluster needs
-scipy but not scikit-learn (unless --reducer spectral or tsne). The JAX
-CLI's --trunk-int8 is a later slice of the port: argparse refuses it.
+scipy but not scikit-learn (unless --reducer spectral or tsne).
 
 Under ``torchrun`` each rank is one process (its own card, or several
 sharing one over gloo), --batch-size is the global batch, and
@@ -100,6 +100,11 @@ def parse_args(argv=None):
                         "superbatch*batch_size images, then do that many "
                         "sequential batch_size contrastive steps (exact "
                         "step semantics, fewer trunk launches)")
+    p.add_argument("--trunk-int8", action="store_true",
+                   help="run the frozen image trunk's convs in int8 "
+                        "(s8 x s8 -> s32 products; activation scales "
+                        "calibrated on the first batch): a fixed, "
+                        "documented perturbation of the embeddings")
     p.add_argument("--checkpoint-dir", default=Config.CHECKPOINT_DIR)
     p.add_argument("--image-dir", default=Config.IMAGE_DIR)
     p.add_argument("--resume", action="store_true",
@@ -182,7 +187,8 @@ def _main(args, device):
                       compute_dtype=args.compute_dtype,
                       cache_region_features=args.cache_features,
                       superbatch=args.superbatch,
-                      trunk_train_mode_bn=args.trunk_train_mode_bn)
+                      trunk_train_mode_bn=args.trunk_train_mode_bn,
+                      trunk_int8=args.trunk_int8)
     run_cfg = RunConfig(seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                         log_every=args.log_every,
                         image_dir=args.image_dir, profile=args.profile,

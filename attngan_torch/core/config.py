@@ -5,7 +5,7 @@ The port keeps its own copies of the JAX package's ``GanConfig``,
 instead of importing them: the port imports nothing of that package. Field
 names and model-shape defaults are the same, so a checkpoint's recorded
 config reads the same in both. Only the fields the port uses are copied:
-``DamsmConfig``'s int8 trunk comes with its own slice. ``GanConfig``'s ``remat_coupling`` and
+``GanConfig``'s ``remat_coupling`` and
 ``reuse_gen_forward`` have no counterpart: they choose how XLA schedules
 the same step, and autograd keeps the one generator forward's graph.
 """
@@ -54,6 +54,10 @@ class DamsmConfig:
     # sequence instead of K. Incompatible with trunk_train_mode_bn; ignored
     # on the cached path.
     superbatch: int = 1
+    # the frozen trunk's convs in int8 (infer/quantize.py), the activation
+    # scales calibrated on the first batch; incompatible with
+    # trunk_train_mode_bn
+    trunk_int8: bool = False
 
 
 @dataclass(frozen=True)

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from attngan_torch.ops.int8 import intercept
 from attngan_torch.ops.layers import BatchNorm
 
 INCEPTION_BN_EPS = 1e-3   # torchvision BasicConv2d
@@ -62,8 +63,10 @@ class BasicConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        y = F.conv2d(x, c.weight.to(x.dtype), stride=c.stride,
-                     padding=c.padding)
+        y = intercept(c, x)
+        if y is None:
+            y = F.conv2d(x, c.weight.to(x.dtype), stride=c.stride,
+                         padding=c.padding)
         return F.relu(self.bn(y))
 
 
@@ -84,6 +87,11 @@ def _avg_pool3x3(x: torch.Tensor) -> torch.Tensor:
 
 
 class InceptionA(nn.Module):
+    # the 1x1 heads that JAX's eval trunk runs as one folded conv on the
+    # raw kernels (attngan_tpu/models/cnn_encoder.py::_fused_siblings):
+    # no int8 site there (infer/quantize.py::trunk_sites)
+    FUSED_SIBLINGS = ("branch1x1", "branch5x5_1", "branch3x3dbl_1")
+
     def __init__(self, in_ch: int, pool_features: int):
         super().__init__()
         self.branch1x1 = BasicConv2d(in_ch, 64, kernel_size=1)
@@ -118,6 +126,8 @@ class InceptionB(nn.Module):
 
 
 class InceptionC(nn.Module):
+    FUSED_SIBLINGS = ("branch1x1", "branch7x7_1", "branch7x7dbl_1")
+
     def __init__(self, in_ch: int, channels_7x7: int):
         super().__init__()
         c7 = channels_7x7
@@ -142,6 +152,8 @@ class InceptionC(nn.Module):
 
 
 class InceptionD(nn.Module):
+    FUSED_SIBLINGS = ("branch3x3_1", "branch7x7x3_1")
+
     def __init__(self, in_ch: int):
         super().__init__()
         self.branch3x3_1 = BasicConv2d(in_ch, 192, kernel_size=1)
@@ -160,6 +172,8 @@ class InceptionD(nn.Module):
 
 
 class InceptionE(nn.Module):
+    FUSED_SIBLINGS = ("branch1x1", "branch3x3_1", "branch3x3dbl_1")
+
     def __init__(self, in_ch: int):
         super().__init__()
         self.branch1x1 = BasicConv2d(in_ch, 320, kernel_size=1)
@@ -237,8 +251,11 @@ class TinyTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = resize_bilinear(x.to(self.dtype), 68)
         for c in (self.Conv_0, self.Conv_1, self.Conv_2):
-            x = F.relu(F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype),
-                                stride=c.stride, padding=c.padding))
+            y = intercept(c, x)
+            if y is None:
+                y = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype),
+                             stride=c.stride, padding=c.padding)
+            x = F.relu(y)
         return x, x.mean(dim=(2, 3))
 
 

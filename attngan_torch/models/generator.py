@@ -26,6 +26,7 @@ from attngan_torch.core.config import GanConfig
 from attngan_torch.core.runtime import compute_dtype
 from attngan_torch.ops.attention import word_attention
 from attngan_torch.ops.cuda_attention import word_attention_cuda
+from attngan_torch.ops.int8 import intercept
 from attngan_torch.ops.layers import (
     BatchNorm,
     ResBlock,
@@ -46,7 +47,9 @@ class CondAugment(nn.Module):
 
     def forward(self, sent_emb: torch.Tensor, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        x = glu(self.fc(sent_emb.float()), dim=-1)          # (B, 2*cond)
+        sent_emb = sent_emb.float()
+        x = intercept(self.fc, sent_emb)
+        x = glu(self.fc(sent_emb) if x is None else x, dim=-1)  # (B, 2*cond)
         mu, logvar = x[:, : self.cond_dim], x[:, self.cond_dim:]
         std = torch.exp(0.5 * logvar)
         if eps is None:
@@ -71,8 +74,13 @@ class InitialStage(nn.Module):
             for div in (2, 4, 8, 16))
 
     def forward(self, noise: torch.Tensor, condition: torch.Tensor):
-        x = torch.cat([noise, condition], dim=-1).to(self.dtype)
-        x = glu(self.bn(x @ self.fc.weight.to(self.dtype).t()), dim=-1)
+        x = torch.cat([noise, condition], dim=-1)
+        # an int8 site returns its fp32 input's type; JAX's BN (dtype=)
+        # then computes in fp32 and casts to the compute dtype
+        h = intercept(self.fc, x)
+        if h is None:
+            h = x.to(self.dtype) @ self.fc.weight.to(self.dtype).t()
+        x = glu(self.bn(h).to(self.dtype), dim=-1)
         # the JAX package reshapes the flat features as NHWC (-1, 4, 4, ng);
         # that (B, 4, 4, ng) tensor IS the channels_last NCHW layout
         x = x.view(-1, 4, 4, self.ng).permute(0, 3, 1, 2)
@@ -99,7 +107,13 @@ class NextStage(nn.Module):
 
     def forward(self, images: torch.Tensor, word_embs: torch.Tensor,
                 mask: torch.Tensor):
-        words = word_embs.to(self.dtype) @ self.word_proj.weight.to(self.dtype).t()
+        words = intercept(self.word_proj, word_embs)
+        if words is None:
+            words = (word_embs.to(self.dtype)
+                     @ self.word_proj.weight.to(self.dtype).t())
+        # an int8 site returns the fp32 words' type, which JAX's attention
+        # promotes to; the port keeps the compute dtype, which K1 takes
+        words = words.to(self.dtype)
         attend = word_attention_cuda if self.fused_attention else word_attention
         context, attn = attend(images.permute(0, 2, 3, 1).contiguous(),
                                words.contiguous(), mask)

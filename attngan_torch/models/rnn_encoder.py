@@ -11,6 +11,13 @@ identity. A data-parallel rank passes ``shard`` = (its index, the number
 of ranks): the mask is drawn for the whole global batch and the rank keeps
 its rows, so that n ranks draw what one process draws. The JAX module has one bias per direction: ``bias_hh`` stays zero
 and takes no gradient, so that the trained bias is ``bias_ih`` alone.
+
+``forward_masked`` is the same eval-mode function in a form that
+``torch.export`` traces (infer/export.py): packing needs the lengths on
+the host and the empty-caption branch reads data, so it runs JAX's form
+instead, a scan over the fixed ``seq_len`` with the carry frozen and the
+output zeroed at padded steps, the backward direction over each row's
+words reversed. The live paths keep ``nn.LSTM``.
 """
 
 from __future__ import annotations
@@ -69,3 +76,42 @@ class BiLSTMEncoder(nn.Module):
             words = words.masked_fill(empty[:, None, None], 0.0)
             sent = sent.masked_fill(empty[:, None], 0.0)
         return words, sent
+
+    def forward_masked(self, captions: torch.Tensor, lengths: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward``'s eval-mode outputs, traceable: no host lengths, no
+        branch on data."""
+        x = self.embedding(captions.long())                 # (B, L, E)
+        seq_len = x.shape[1]
+        steps = torch.arange(seq_len, device=x.device)
+        lengths = lengths.to(x.device, torch.int64)[:, None]
+        valid = steps[None, :] < lengths                    # (B, L)
+        # each row's words reversed, its padding left in place (an
+        # involution: it also puts the reversed outputs back)
+        order = torch.where(valid, lengths - 1 - steps[None, :],
+                            steps[None, :])[..., None]
+
+        def run(x: torch.Tensor, suffix: str):
+            lstm = self.lstm
+            w_hh = getattr(lstm, "weight_hh_l0" + suffix)
+            gates_in = (x @ getattr(lstm, "weight_ih_l0" + suffix).t()
+                        + getattr(lstm, "bias_ih_l0" + suffix)
+                        + getattr(lstm, "bias_hh_l0" + suffix))
+            h = x.new_zeros((x.shape[0], w_hh.shape[1]))
+            c = torch.zeros_like(h)
+            outputs = []
+            for t in range(seq_len):
+                i, f, g, o = (gates_in[:, t] + h @ w_hh.t()).chunk(4, dim=-1)
+                c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h_new = torch.sigmoid(o) * torch.tanh(c_new)
+                keep = valid[:, t, None]
+                h = torch.where(keep, h_new, h)
+                c = torch.where(keep, c_new, c)
+                outputs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
+            return torch.stack(outputs, dim=1), h
+
+        fwd, h_fwd = run(x, "")
+        reverse = order.expand(-1, -1, x.shape[-1])
+        bwd, h_bwd = run(x.gather(1, reverse), "_reverse")
+        bwd = bwd.gather(1, order.expand(-1, -1, bwd.shape[-1]))
+        return torch.cat([fwd, bwd], dim=-1), torch.cat([h_fwd, h_bwd], dim=-1)

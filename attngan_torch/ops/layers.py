@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
+from attngan_torch.ops.int8 import intercept
 from attngan_torch.ops.cuda_upblock_packed import (
     CI as PACKED_CI,
     CO as PACKED_CO,
@@ -52,7 +53,10 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """``layer``'s conv (its stride, padding and bias, if any) run in
-    ``dtype``."""
+    ``dtype``, or an int8 interceptor's site (ops/int8.py)."""
+    out = intercept(layer, x)
+    if out is not None:
+        return out
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
                     stride=layer.stride, padding=layer.padding)

@@ -24,7 +24,8 @@ several sharing a card), and the collectives are explicit:
 Every collective here is an ``all_reduce`` of a sum, the one that gloo
 takes on CPU and CUDA tensors alike and NCCL takes too: a gather is the
 sum of each rank's rows placed in a zero buffer of the whole batch (exact:
-every element is one rank's value plus zeros). The tensors stay on their
+every element is one rank's value plus zeros). The one other is the int8
+calibration's maximum (``all_reduce_max``). The tensors stay on their
 device; gloo moves CUDA tensors through the host itself.
 """
 
@@ -247,6 +248,16 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if mesh is None or mesh.size == 1:
         return x
     return _AllReduceSum.apply(x, mesh)
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks (not differentiable:
+    the int8 calibration's activation maxima)."""
+    if mesh is None or mesh.size == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group)
+    return x
 
 
 def all_reduce_mean_(tensors: Sequence[Optional[torch.Tensor]],

@@ -26,8 +26,15 @@ behind another trunk forward:
 - ``trunk_train_mode_bn``: the unfolded trunk in train mode (the
   reference never calls eval() on it), whose BN moves the running
   statistics; the folded copy is then stale and is dropped.
+- ``trunk_int8``: the eval trunk with its convs in int8
+  (infer/quantize.py), calibrated once at percentile 100 on the first
+  batch's img256 (JAX's ``_calibrate_trunk_int8``), in ``train_step`` and
+  ``train_step_super``. The int8 forward is the unfolded eval trunk: each
+  site quantizes the raw conv weight and the BN follows in float, as JAX
+  computes it; the fused siblings stay float. ``precompute_trunk_features``
+  caches the float trunk's features, as JAX's does.
 ``iter_attention_maps`` / ``populate_attention_maps`` are the reference's
-``populate_attnmaps``. The int8 trunk is a later slice of the port.
+``populate_attnmaps``.
 
 Data parallel (``mesh`` of n > 1 ranks, parallel/mesh.py): each rank's
 batch is its rows of the global batch. The words + sentence loss is the
@@ -113,6 +120,10 @@ class DamsmTrainer:
                 "cache_region_features assumes a step-invariant trunk forward;"
                 " trunk_train_mode_bn makes features depend on batch "
                 "composition — pick one")
+        if cfg.trunk_int8 and cfg.trunk_train_mode_bn:
+            raise ValueError(
+                "trunk_int8 quantizes the eval-mode trunk; batch-stat BN "
+                "(trunk_train_mode_bn) is not supported under int8")
         if cfg.superbatch > 1 and cfg.trunk_train_mode_bn:
             raise ValueError(
                 "superbatch amortizes ONE eval-mode trunk forward over "
@@ -126,6 +137,8 @@ class DamsmTrainer:
         # attngan_tpu/train/damsm_trainer.py:68-76
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.sharded_loss = None
+        self._trunk_scales: Optional[Dict[str, float]] = None
+        self._trunk_quantizer = None    # (trunk, its Quantizer)
         if self.mesh is not None:
             self.sharded_loss = make_sharded_damsm_loss(
                 self.mesh, cfg.gamma1, cfg.gamma2, cfg.gamma3, cfg.wlambda,
@@ -180,7 +193,7 @@ class DamsmTrainer:
         if self.cfg.trunk_train_mode_bn:
             regions, pooled = self._train_mode_trunk_forward(state, img)
         else:
-            regions, pooled = self._eval_trunk_forward(state, img)
+            regions, pooled = self._frozen_trunk_forward(state, img)
         return state, self._damsm_update(state, batch, regions, pooled)
 
     def train_step_cached(self, state: DamsmState, batch: Dict[str, object]
@@ -208,7 +221,7 @@ class DamsmTrainer:
         if kb != k * b:
             raise ValueError(f"superbatch step expects {k}x{b} rows, got {kb}")
         img = torch.as_tensor(batch["img256"]).to(self.device)
-        regions, pooled = self._eval_trunk_forward(state, img)
+        regions, pooled = self._frozen_trunk_forward(state, img)
         metrics = []
         for i in range(k):
             rows = slice(i * b, (i + 1) * b)
@@ -335,6 +348,44 @@ class DamsmTrainer:
         with torch.no_grad():
             return self._flat_regions(
                 *state.frozen_trunk(img256.permute(0, 3, 1, 2)))
+
+    def _frozen_trunk_forward(self, state: DamsmState, img256: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval trunk of ``train_step`` / ``train_step_super``: in int8
+        under ``cfg.trunk_int8``, else the folded float trunk."""
+        if self.cfg.trunk_int8:
+            return self._int8_trunk_forward(state, img256)
+        return self._eval_trunk_forward(state, img256)
+
+    def _calibrate_trunk_int8(self, state: DamsmState, img256: torch.Tensor
+                              ) -> Dict[str, float]:
+        """The int8 trunk's activation scales, calibrated once (JAX's
+        ``_calibrate_trunk_int8``): max|x| at each site of one eval forward
+        of the trunk over ``img256`` (over a mesh, every rank's rows)."""
+        if self._trunk_scales is None:
+            from attngan_torch.infer.quantize import calibrate, trunk_sites
+
+            trunk = state.cnn.trunk
+            with torch.no_grad():
+                _, self._trunk_scales = calibrate(
+                    trunk, img256.permute(0, 3, 1, 2),
+                    sites=trunk_sites(trunk), mesh=self.mesh)
+        return self._trunk_scales
+
+    def _int8_trunk_forward(self, state: DamsmState, img256: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval trunk with every calibrated site in int8, outside
+        autograd. The trunk's weights are quantized once for each trunk."""
+        from attngan_torch.infer.quantize import Quantizer, trunk_sites
+        from attngan_torch.ops.int8 import intercepting
+
+        scales = self._calibrate_trunk_int8(state, img256)
+        trunk = state.cnn.trunk
+        if self._trunk_quantizer is None or self._trunk_quantizer[0] is not trunk:
+            self._trunk_quantizer = (trunk, Quantizer(trunk_sites(trunk),
+                                                      scales))
+        with torch.no_grad(), intercepting(self._trunk_quantizer[1]):
+            return self._flat_regions(*trunk(img256.permute(0, 3, 1, 2)))
 
     def _train_mode_trunk_forward(self, state: DamsmState,
                                   img256: torch.Tensor

@@ -131,7 +131,29 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    steps/s of the plain, cached, superbatch (K = 4) and train-mode-BN
    steps at batch 64, in turns (with ``--profile``: a 12-step window of
    each under torch.profiler);
-10. one ``{"kernels": [...]}`` line (launches summed over every path's
+10. data parallelism: the sharded DAMSM loss on 2 gloo ranks sharing the
+   card (``torchrun`` of this script with ``--rank``: K4 once and K6 twice
+   a rank) against one process, K4 / K6 against their plain versions and
+   timed at each rank's shapes; the CLIs under ``torchrun --mesh-shape 2``
+   in fp32, chained through their checkpoints, against the same chain in
+   one process (the ranks' states bit-identical, exact launches a rank);
+   NCCL at world 1 (``data_parallel_phase``);
+11. the side tiers at full width (``side_tiers_phase``): int8 serving
+   (GanConfig defaults, bf16, batch 64): the s32 product of every
+   quantized site of one call against the CPU's, bit for bit; K1 and K2
+   twice a call and nothing else; int8 against float images and img/s in
+   turns; each pass's device time at the two largest sites beside the bf16
+   conv; ``cli.infer --int8 --benchmark`` (its launches exact); fp32 int8
+   images at batch 2 against the CPU's; ``cli.infer --export`` (cuda and
+   cpu, symbolic batch) and ``--export --int8``, both served in a fresh
+   process that imports only torch and the loader's file (batches of 3
+   and 64 on the card, 2 on the CPU) against the live samplers;
+   ``cli.pretrain --trunk-int8`` and plain (128 images, batch 64: 2
+   steps each, K4 once and K5 twice a step), their losses within 5%, and
+   both steps' steps/s in turns; ``int8_vs_bf16_fid`` at batch 64 on the
+   calibrated random featurizer, a set's FID against itself, and the
+   featurizer's fp32 features on the card against the CPU's;
+12. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +174,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 BATCH = 64            # serving batch of the full-width run
 CHECK_BATCH = 8       # batch of the fp32 / bf16 per-kernel checks
@@ -2555,6 +2578,468 @@ def data_parallel_phase(torch, card_name: str) -> dict:
     return total
 
 
+# ------------------------------------------------ phase 11: the side tiers
+
+# int8 images, fp32 at batch 2, card against the CPU (same weights, noise
+# and scales): a site's input differs by float rounding between the two
+# (~1e-6 relative), which flips round(x / sx) for the element within that
+# of a half step (~1e-4 of a site's elements at full width); a flip moves
+# that element's product by one quantization step and the later convs
+# spread it over a patch. Read on the card (H100 80GB HBM3, 700 W): mean
+# 3.0e-4, max 4.8e-3 (a first bound of 1e-4 on the mean came from the
+# tiny CPU test against JAX, 1.1e-5, whose sites hold ~1000x fewer
+# elements). The tier's own effect, int8 against float, is a mean of
+# 7.4e-3, which a wrong scale or weight would reach.
+INT8_VS_CPU = dict(atol=2e-2, mean=1e-3)
+# an artifact's images against the live sampler's, same weights and seed's
+# draws: the same ops in bf16, but the BiLSTM in its masked form (fp32,
+# ~1e-7 from nn.LSTM) moves a bf16 rounding here and there; a wrong
+# weight, seed or path moves the mean by ~1e-1
+EXPORT_MEAN = 1e-3
+# the int8 trunk's losses against the plain trunk's from the same state:
+# JAX's own bound (tests/test_quantize.py)
+TRUNK_INT8_RTOL = 0.05
+# the FID featurizer's fp32 features, card against the CPU, as a share of
+# their largest magnitude (the CPU against JAX: 3.6e-5)
+FEATURE_RTOL = 1e-3
+# a set's FID against itself, as a share of its covariance's trace (sqrtm
+# of a rank-deficient product: 64 images in 2048 dimensions; 2.4e-7 of it
+# on random features on the CPU)
+SELF_FID_SHARE = 1e-5
+EXPORT_SEED = 7
+
+SERVE_EXPORTED = r"""
+import importlib.util, sys
+import torch
+spec = importlib.util.spec_from_file_location("export_loader", sys.argv[1])
+loader = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(loader)
+tokens, lengths = torch.load(sys.argv[2])
+out = {}
+for name, path in (("float", sys.argv[3]), ("int8", sys.argv[4])):
+    for device, sizes in (("cuda", (3, 64)), ("cpu", (2,))):
+        served = loader.ExportedSampler(path, device=device)
+        for n in sizes:
+            out[(name, device, n)] = served(tokens[:n], lengths[:n],
+                                            seed=int(sys.argv[6])).cpu()
+imported = sorted(m for m in sys.modules if m.startswith("attngan"))
+assert not imported, imported
+torch.save(out, sys.argv[5])
+"""
+
+
+def int8_products(torch, sampler, tokens, lengths, noise, eps) -> dict:
+    """Every quantized site of one int8 serving call: its int8 input's
+    exact s32 product on the card (``Int8Site.int_product``, cuBLASLt's
+    IMMA) against the CPU's, in float64 (exact: every partial sum is an
+    integer below 2^53), whole batch, bit for bit. Returns {path: the
+    site's input} for the timing of the largest sites."""
+    import torch.nn.functional as F
+
+    from attngan_torch.ops.int8 import quantize
+
+    quantizer = sampler.quantizer
+    captured = []
+
+    def capture(layer, x):
+        entry = quantizer._by_layer.get(layer)
+        if entry is not None and entry[0] in quantizer.act_scales:
+            captured.append((*entry, x))
+        return quantizer(layer, x)
+
+    sampler.quantizer = capture
+    try:
+        sampler.generate_from_tokens(tokens, lengths, noise, eps)
+    finally:
+        sampler.quantizer = quantizer
+    torch.cuda.synchronize()
+    rows, inputs = [], {}
+    for path, site, x in captured:
+        sx = max(quantizer.act_scales[path], 1e-8) / 127.0
+        w = site.int8_weight().cpu().double()
+        if site.conv:
+            q = quantize(x.permute(0, 2, 3, 1), sx).contiguous()
+            ref = F.conv2d(q.permute(0, 3, 1, 2).cpu().double(), w,
+                           stride=site.stride, padding=site.padding
+                           ).permute(0, 2, 3, 1)
+        else:
+            q = quantize(x, sx).reshape(-1, x.shape[-1])
+            ref = q.cpu().double() @ w.t()
+        got = site.int_product(q).cpu()
+        exact = bool(torch.equal(got.long(), ref.long()))
+        rows.append([path, list(q.shape), int(got.abs().max()), exact])
+        fail_unless(exact, f"int8 product of {path} differs from the CPU's")
+        inputs[path] = x
+    print(json.dumps({"phase": "side_tiers", "step": "int8_products",
+                      "sites": len(rows), "exact": all(r[3] for r in rows),
+                      "rows": ["path, int8 input shape, max |s32|, exact",
+                               *rows]}), flush=True)
+    fail_unless(len(rows) == 15, f"{len(rows)} int8 sites, expected 15")
+    return inputs
+
+
+def int8_site_times(torch, sampler, inputs: dict, card_name: str) -> None:
+    """Device ms at the two largest sites (gen3's first ResBlock conv at
+    128^2 and img_out3's at 256^2, batch 64, bf16): the bf16 cuDNN conv
+    beside the int8 site and its passes (quantize, im2col, the s32 GEMM,
+    dequantize)."""
+    import torch.nn.functional as F
+
+    from attngan_torch.ops.int8 import quantize
+
+    gen = sampler.state.generator
+    for path, layer in (("gen3/ResBlock_0/Conv_0", gen.gen3.res[0].conv1),
+                        ("img_out3/Conv_0", gen.img_out3.conv)):
+        x = inputs[path]
+        site = sampler.quantizer._by_layer[layer][1]
+        sx = max(sampler.quantizer.act_scales[path], 1e-8) / 127.0
+        w = layer.weight.to(x.dtype)
+        q = quantize(x.permute(0, 2, 3, 1), sx).contiguous()
+        (kh, kw), (ph, pw) = site.kernel_size, site.padding
+        qp = F.pad(q, (0, 0, pw, pw, ph, ph))
+        b, hp, wp, c = qp.shape
+        ho, wo = hp - kh + 1, wp - kw + 1
+        a = torch.cat([qp[:, i:i + ho, j:j + wo] for i in range(kh)
+                       for j in range(kw)], dim=-1).reshape(b * ho * wo, -1)
+        a = F.pad(a, (0, site.wmat.shape[0] - a.shape[1]))
+        y = torch._int_mm(a, site.wmat)
+        ms = {
+            "bf16_conv": time_ms(lambda: F.conv2d(x, w, padding=layer.padding),
+                                 iters=10),
+            "int8_site": time_ms(lambda: site(x, sx), iters=10),
+            "quantize": time_ms(lambda: quantize(x.permute(0, 2, 3, 1), sx)
+                                .contiguous(), iters=10),
+            "im2col": time_ms(lambda: torch.cat(
+                [qp[:, i:i + ho, j:j + wo] for i in range(kh)
+                 for j in range(kw)], dim=-1), iters=10),
+            "int8_gemm": time_ms(lambda: torch._int_mm(a, site.wmat),
+                                 iters=10),
+            "dequantize": time_ms(lambda: (y[:, :site.out_features].float()
+                                           * (sx * site.sw)).to(x.dtype),
+                                  iters=10)}
+        print(json.dumps({"phase": "side_tiers", "step": "int8_site_ms",
+                          "site": path, "input": list(x.shape),
+                          "gemm_mkn": [a.shape[0], a.shape[1],
+                                       site.wmat.shape[1]],
+                          "im2col_mb": a.numel() / 2 ** 20, **ms,
+                          "card": card_name}), flush=True)
+
+
+def int8_serving(torch, card_name: str, d: str) -> tuple:
+    """Int8 serving at full width (bf16, batch 64): the products of one
+    call bit for bit, exact launches, int8 against float images and img/s
+    in turns, the sites' device times, cli.infer --int8 --benchmark, fp32
+    at batch 2 against the CPU. Returns ({kernel: launches}, the state's
+    .pt path, tokens, lengths)."""
+    import numpy as np
+
+    from attngan_torch.cli import infer
+    from attngan_torch.core.config import GanConfig, replace
+    from attngan_torch.infer.quantize import Int8Sampler
+    from attngan_torch.infer.sampler import (
+        InferState,
+        Sampler,
+        load_infer_state,
+        save_infer_state,
+    )
+
+    counters = kernel_counters()
+    cfg = GanConfig()
+    torch.manual_seed(0)
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, VOCAB, (BATCH, SEQ_LEN)))
+    lengths = torch.as_tensor(rng.integers(1, SEQ_LEN + 1, BATCH))
+    path = os.path.join(d, "infer_state.pt")
+    state = InferState(cfg, VOCAB)
+    calibrate_bn(torch, state, tokens[:16], lengths[:16])
+    save_infer_state(path, state)
+    float_s = Sampler(load_infer_state(path, cfg, device="cuda"))
+    int8_s = Int8Sampler(load_infer_state(path, cfg, device="cuda"))
+    gen = torch.Generator("cuda").manual_seed(12)
+    noise = torch.randn((BATCH, cfg.z_dim), generator=gen, device="cuda")
+    eps = torch.randn((BATCH, cfg.cond_dim), generator=gen, device="cuda")
+    int8_s.generate_from_tokens(tokens, lengths, noise, eps)   # calibrates
+    inputs = int8_products(torch, int8_s, tokens, lengths, noise, eps)
+    launches = {}
+    for fn in counters.values():
+        fn.launches = 0
+    int8_imgs = int8_s.generate_from_tokens(tokens, lengths, noise, eps)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 2 if name in ("word_attention", "upblock_fused_eval")
+            else 0 for name in counters}
+    fail_unless(counts == want, f"int8 serving call: launches {counts}, "
+                f"expected {want}")
+    for name in ("word_attention", "upblock_fused_eval"):
+        launches[name] = 2
+    float_imgs = float_s.generate_from_tokens(tokens, lengths, noise, eps)
+    delta = (int8_imgs - float_imgs).abs()
+    fail_unless(bool(torch.isfinite(int8_imgs).all()), "non-finite int8 "
+                "images")
+    print(json.dumps({"phase": "side_tiers", "step": "int8_serve",
+                      "batch": BATCH, "launches": counts,
+                      "scales": len(int8_s.act_scales),
+                      "int8_vs_float_mean_abs": float(delta.mean()),
+                      "int8_vs_float_max_abs": float(delta.max()),
+                      "float_std": float(float_imgs.std())}), flush=True)
+    int8_site_times(torch, int8_s, inputs, card_name)
+    del inputs
+
+    paths = (("int8", int8_s), ("float_k2", float_s))
+    rates = {label: [] for label, _ in paths}
+    for round_ in range(4):
+        for label, sampler in paths[round_ % 2:] + paths[:round_ % 2]:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(5):
+                sampler.generate_from_tokens(tokens, lengths, noise, eps)
+            torch.cuda.synchronize()
+            rates[label].append(5 * BATCH / (time.perf_counter() - start))
+    print(json.dumps({"phase": "side_tiers", "step": "int8_throughput",
+                      "batch": BATCH, **{f"{k}_img_per_s":
+                                         statistics.median(v)
+                                         for k, v in rates.items()},
+                      "windows": rates, "card": card_name}), flush=True)
+    del float_s, int8_s
+
+    for fn in counters.values():
+        fn.launches = 0
+    line = infer.main(["--checkpoint", path, "--int8", "--benchmark",
+                       "--batch-size", str(BATCH)])
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    # cli/infer.py's warm-up and 5 windows of 4 calls, and the first
+    # call's calibration forward (float: K1 and K2 too)
+    calls = 1 + 5 * 4 + 1
+    want = {name: 2 * calls if name in ("word_attention",
+                                        "upblock_fused_eval") else 0
+            for name in counters}
+    fail_unless(counts == want and line["int8"] is True,
+                f"cli.infer --int8 --benchmark: launches {counts}, "
+                f"expected {want}")
+    for name in ("word_attention", "upblock_fused_eval"):
+        launches[name] += want[name]
+
+    cfg32 = replace(cfg, compute_dtype="float32")
+    card32 = Int8Sampler(load_infer_state(path, cfg32, device="cuda"))
+    cpu32 = Int8Sampler(load_infer_state(path, cfg32, device="cpu"),
+                        device="cpu")
+    scales = card32.calibrate_on(tokens[:2], lengths[:2], noise[:2], eps[:2])
+    cpu32.act_scales = cpu32.quantizer.act_scales = scales
+    got = card32.generate_from_tokens(tokens[:2], lengths[:2], noise[:2],
+                                      eps[:2]).cpu()
+    ref = cpu32.generate_from_tokens(tokens[:2], lengths[:2],
+                                     noise[:2].cpu(), eps[:2].cpu())
+    diff = (got - ref).abs()
+    print(json.dumps({"phase": "side_tiers", "step": "int8_fp32_vs_cpu",
+                      "batch": 2, "max_abs_err": float(diff.max()),
+                      "mean_abs_err": float(diff.mean()),
+                      "share_within_1e-3": float((diff <= 1e-3).float()
+                                                 .mean()),
+                      "tol": INT8_VS_CPU}), flush=True)
+    fail_unless(float(diff.max()) <= INT8_VS_CPU["atol"]
+                and float(diff.mean()) <= INT8_VS_CPU["mean"],
+                f"int8 fp32 images, card vs CPU: max {float(diff.max())}, "
+                f"mean {float(diff.mean())}")
+    return launches, path, tokens, lengths
+
+
+def exported(torch, d: str, path: str, tokens, lengths) -> None:
+    """cli.infer --export (cuda,cpu, symbolic batch) and --export --int8 on
+    the card; both served in a fresh process that imports torch and the
+    loader's file only (batches of 3 and 64 on the card, 2 on the CPU),
+    against the live plain-path Sampler and the live Int8Sampler (the
+    artifact's scales) on the seed's draws."""
+    from attngan_torch.cli import infer
+    from attngan_torch.data.synthetic import make_synthetic_dataset
+    from attngan_torch.infer import export
+    from attngan_torch.infer.quantize import Int8Sampler
+    from attngan_torch.infer.sampler import Sampler, load_infer_state
+
+    caps = os.path.join(d, "caps.json")
+    make_synthetic_dataset(16).save_captions_and_class_ids(caps)
+    artifacts = {"float": os.path.join(d, "float.zip"),
+                 "int8": os.path.join(d, "int8.zip")}
+    seconds = {}
+    for name, flags in (("float", []), ("int8", ["--int8"])):
+        start = time.perf_counter()
+        infer.main(["--checkpoint", path, "--captions-path", caps,
+                    "--export", artifacts[name], "--batch-size", str(BATCH),
+                    *flags])
+        seconds[name] = time.perf_counter() - start
+    batch_path, out = os.path.join(d, "batch.pt"), os.path.join(d, "out.pt")
+    torch.save((tokens.int(), lengths.int()), batch_path)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_EXPORTED, export.__file__, batch_path,
+         artifacts["float"], artifacts["int8"], out, str(EXPORT_SEED)],
+        capture_output=True, text=True, timeout=600, cwd=d)
+    fail_unless(proc.returncode == 0, f"serving the artifacts: exit "
+                f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    serve_s = time.perf_counter() - start
+    served = torch.load(out)
+    state = load_infer_state(path, device="cpu")
+    with zipfile.ZipFile(artifacts["int8"]) as z:
+        scales = json.loads(z.read(export.ABI))["act_scales"]
+    errors = {}
+    for device in ("cuda", "cpu"):
+        plain = export.plain_state(state, device)
+        live = {"float": Sampler(plain, device=device),
+                "int8": Int8Sampler(plain, device=device)}
+        live["int8"].act_scales = live["int8"].quantizer.act_scales = scales
+        for (name, dev, n), imgs in served.items():
+            if dev != device:
+                continue
+            want = live[name].generate_from_tokens(
+                tokens[:n], lengths[:n],
+                generator=torch.Generator(device).manual_seed(EXPORT_SEED))
+            diff = (imgs - want.cpu()).abs()
+            errors[f"{name}_{dev}_{n}"] = [float(diff.mean()),
+                                           float(diff.max())]
+            fail_unless(tuple(imgs.shape) == (n, 256, 256, 3)
+                        and float(diff.mean()) <= EXPORT_MEAN,
+                        f"{name} artifact on {dev} at {n}: mean |diff| "
+                        f"{float(diff.mean())}")
+    print(json.dumps({"phase": "side_tiers", "step": "export",
+                      "mb": {k: os.path.getsize(p) / 2 ** 20
+                             for k, p in artifacts.items()},
+                      "export_s": seconds, "serve_process_s": serve_s,
+                      "mean_max_abs_err": errors,
+                      "mean_tol": EXPORT_MEAN}), flush=True)
+
+
+def int8_trunk(torch, card_name: str, d: str) -> dict:
+    """cli.pretrain at full width (128 synthetic images, batch 64, 1
+    epoch: 2 steps), with --trunk-int8 and plain from the same seed: K4 1
+    and K5 2 a step, every other kernel 0; losses finite and the int8
+    run's within 5% of the plain run's; then steps/s of the two trainers
+    in turns on one batch. Returns {kernel: launches}."""
+    import numpy as np
+
+    from attngan_torch.cli import pretrain
+
+    counters = kernel_counters()
+    runs, launches = {}, {}
+    for name, flags in (("plain", []), ("int8", ["--trunk-int8"])):
+        for fn in counters.values():
+            fn.launches = 0
+        runs[name] = pretrain.main([
+            "--synthetic", "128", "--batch-size", "64", "--epochs", "1",
+            "--captions-path", f"{d}/{name}/caps.json",
+            "--checkpoint-dir", f"{d}/{name}/ckpt",
+            "--image-dir", f"{d}/{name}/img", *flags])
+        torch.cuda.synchronize()
+        counts = {n: fn.launches for n, fn in counters.items()}
+        want = {n: {"damsm_similarity": 2,
+                    "damsm_similarity_bwd_square": 4}.get(n, 0)
+                for n in counters}
+        fail_unless(counts == want, f"cli.pretrain {flags}: launches "
+                    f"{counts}, expected {want}")
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+    plain, int8 = (runs[k][2] for k in ("plain", "int8"))
+    rel = [abs(q - p) / abs(p) for p, q in zip(plain, int8)]
+    trainer = runs["int8"][0]
+    print(json.dumps({"phase": "side_tiers", "step": "trunk_int8",
+                      "steps": len(int8), "plain_losses": plain,
+                      "int8_losses": int8, "rel": rel,
+                      "scales": len(trainer._trunk_scales),
+                      "rtol": TRUNK_INT8_RTOL}), flush=True)
+    fail_unless(len(int8) == 2 and all(np.isfinite(int8))
+                and max(rel) < TRUNK_INT8_RTOL
+                and len(trainer._trunk_scales) == 65,
+                f"int8 trunk losses {int8} vs plain {plain}")
+
+    rng = np.random.default_rng(13)
+    batch = {      # the CLI's vocabulary and caption length
+        "tokens": torch.as_tensor(rng.integers(
+            0, trainer.vocab_size, (DAMSM_BATCH, trainer.seq_len)),
+            device="cuda"),
+        "lengths": torch.as_tensor(rng.integers(1, trainer.seq_len + 1,
+                                                DAMSM_BATCH)),
+        "class_ids": None,
+        "img256": torch.rand((DAMSM_BATCH, 256, 256, 3), device="cuda")
+        * 2.0 - 1.0}
+    steps = {k: (runs[k][0], runs[k][1]) for k in runs}
+    rates = {k: [] for k in steps}
+    order = list(steps)
+    for round_ in range(4):
+        for label in order[round_ % 2:] + order[:round_ % 2]:
+            tr, st = steps[label]
+            tr.train_step(st, batch)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(5):
+                tr.train_step(st, batch)
+            torch.cuda.synchronize()
+            rates[label].append(5 / (time.perf_counter() - start))
+    print(json.dumps({"phase": "side_tiers", "step": "trunk_int8_throughput",
+                      "batch": DAMSM_BATCH,
+                      **{f"{k}_steps_per_s": statistics.median(v)
+                         for k, v in rates.items()},
+                      "windows": rates, "card": card_name}), flush=True)
+    return launches
+
+
+def fid(torch, path: str, tokens, lengths, card_name: str) -> None:
+    """int8_vs_bf16_fid at batch 64 on the calibrated random featurizer
+    (bf16), a set's FID against itself, and the featurizer's fp32 features
+    on the card against the CPU's (the same weights and calibration
+    batch)."""
+    import numpy as np
+
+    from attngan_torch.eval.fid import (
+        FIDEvaluator,
+        activation_statistics,
+        frechet_distance,
+        int8_vs_bf16_fid,
+    )
+    from attngan_torch.infer.sampler import Sampler, load_infer_state
+
+    start = time.perf_counter()
+    ev = FIDEvaluator(batch_size=BATCH)
+    state = load_infer_state(path, device="cuda")
+    out = int8_vs_bf16_fid(state, tokens, lengths, seed=14, evaluator=ev)
+    imgs = Sampler(state).generate_from_tokens(
+        tokens, lengths, generator=torch.Generator("cuda").manual_seed(14))
+    mu, sigma = activation_statistics(ev.features(imgs * 2.0 - 1.0))
+    self_fid = frechet_distance(mu, sigma, mu, sigma)
+    fid_s = time.perf_counter() - start
+    calib = torch.rand((16, 128, 128, 3), generator=torch.Generator()
+                       .manual_seed(15)) * 2.0 - 1.0
+    probe = torch.rand((4, 64, 64, 3), generator=torch.Generator()
+                       .manual_seed(16)) * 2.0 - 1.0
+    feats = {dev: FIDEvaluator(batch_size=4, device=dev, calibration=calib,
+                               dtype=torch.float32).features(probe)
+             for dev in ("cuda", "cpu")}
+    scale = float(np.abs(feats["cpu"]).max())
+    err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+    print(json.dumps({"phase": "side_tiers", "step": "fid", "batch": BATCH,
+                      **out, "self_fid": self_fid,
+                      "self_fid_share_of_trace": abs(self_fid)
+                      / float(np.trace(sigma)),
+                      "fp32_features_max_abs_err": err,
+                      "features_scale": scale, "feature_rtol": FEATURE_RTOL,
+                      "fid_s": fid_s, "card": card_name}), flush=True)
+    fail_unless(all(np.isfinite(v) for v in out.values()), f"FID {out}")
+    fail_unless(abs(self_fid) <= SELF_FID_SHARE * float(np.trace(sigma)),
+                f"FID of a set against itself: {self_fid}")
+    fail_unless(err <= FEATURE_RTOL * scale, f"fp32 features, card vs CPU: "
+                f"{err} of {scale}")
+
+
+def side_tiers_phase(torch, card_name: str) -> dict:
+    """Phase 11: int8 serving, export, the int8 trunk and FID at full
+    width. Returns {kernel: launches over the phase's counted calls}."""
+    with tempfile.TemporaryDirectory() as d:
+        launches, path, tokens, lengths = int8_serving(torch, card_name, d)
+        exported(torch, d, path, tokens, lengths)
+        for name, n in int8_trunk(torch, card_name, d).items():
+            launches[name] = launches.get(name, 0) + n
+        fid(torch, path, tokens, lengths, card_name)
+    return launches
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -2845,11 +3330,14 @@ def main() -> int:
     lap("pretrain_options")
     dp_launches = data_parallel_phase(torch, card_name)
     lap("data_parallel")
+    side_launches = side_tiers_phase(torch, card_name)
+    lap("side_tiers")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     # launches summed over every path: serving, pretrain, GAN step, loops,
-    # captioner, pretrain options, data parallel (every rank's)
+    # captioner, pretrain options, data parallel (every rank's), side tiers
     for counted in (damsm_launches, gan_launches, loop_launches,
-                    captioner_launches, options_launches, dp_launches):
+                    captioner_launches, options_launches, dp_launches,
+                    side_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 

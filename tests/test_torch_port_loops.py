@@ -17,9 +17,8 @@
 - The CLI chain pretrain -> train -> infer (--swap, --all-stages,
   --save-attention, --benchmark) runs in a process where Pillow,
   matplotlib and scikit-learn cannot be imported, and writes every file the
-  JAX CLIs write; the flags of later slices are refused; without
-  --checkpoint, cli.infer serves <checkpoint dir>/gan's newest step, or
-  random weights where there is none.
+  JAX CLIs write; without --checkpoint, cli.infer serves <checkpoint
+  dir>/gan's newest step, or random weights where there is none.
 """
 
 import json
@@ -351,14 +350,6 @@ def test_infer_defaults_to_the_gan_checkpoint_dir(tmp_path, monkeypatch,
         assert ("WARNING: no checkpoint found in checkpoints/gan; using "
                 "random weights") in out and "restored" not in out
         assert got.shape == (256, 256, 3)
-
-
-@pytest.mark.parametrize("cli,flag", [
-    (pretrain, "--trunk-int8"), (infer, "--export"), (infer, "--int8")])
-def test_flags_of_later_slices_are_refused(cli, flag, capsys):
-    with pytest.raises(SystemExit):
-        cli.parse_args([flag])
-    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_the_loops_default_to_the_gpu(tmp_path, monkeypatch):

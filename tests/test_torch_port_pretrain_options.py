@@ -269,8 +269,9 @@ def test_superbatch_refuses_other_row_counts():
 
 @pytest.mark.parametrize("flags", [
     dict(cache_region_features=True, trunk_train_mode_bn=True),
-    dict(superbatch=2, trunk_train_mode_bn=True)],
-    ids=["cache_and_bn", "superbatch_and_bn"])
+    dict(superbatch=2, trunk_train_mode_bn=True),
+    dict(trunk_int8=True, trunk_train_mode_bn=True)],
+    ids=["cache_and_bn", "superbatch_and_bn", "int8_and_bn"])
 def test_constructor_refuses_what_jax_refuses(flags):
     with pytest.raises(ValueError) as want:
         JaxDamsmTrainer(JaxDamsmConfig(**SHAPE, **flags), VOCAB, L,
@@ -662,13 +663,6 @@ def test_cli_refuses_stream_with_cache_features(tmp_path):
 def test_cli_refuses_a_pretrained_cnn_for_the_tiny_encoder(tmp_path, inception):
     with pytest.raises(ValueError, match="Inception-v3 trunk"):
         _cli(tmp_path, "--pretrained-cnn", inception[0])
-
-
-@pytest.mark.parametrize("flag", ["--trunk-int8"])
-def test_cli_still_refuses_later_slices(capsys, flag):
-    with pytest.raises(SystemExit):
-        pretrain.parse_args([flag])
-    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [["--cache-features"],

@@ -183,8 +183,33 @@ def sample_job(mesh: Optional[Mesh], cfg: dict, vocab: int,
     return numpy_tree({"images": images, "attns": attns})
 
 
+def int8_job(mesh: Optional[Mesh], cfg: dict, vocab: int,
+             tokens: np.ndarray, lengths: np.ndarray, weights: dict,
+             noise: np.ndarray, eps: np.ndarray, img: np.ndarray) -> dict:
+    """The int8 tier's calibration on this rank's rows: an Int8Sampler's
+    p99 scales and its images of the whole batch, and the tiny trunk's
+    max scales (DamsmTrainer.trunk_int8) over img."""
+    from attngan_torch.infer.quantize import Int8Sampler
+
+    state = InferState(GanConfig(**cfg), vocab)
+    state.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    sampler = Int8Sampler(state, device="cpu", mesh=mesh)
+    images = sampler.generate_from_tokens(tokens, lengths,
+                                          torch.from_numpy(noise),
+                                          torch.from_numpy(eps))
+    trainer = DamsmTrainer(DamsmConfig(image_encoder="tiny", emb_dim=16,
+                                       batch_size=img.shape[0],
+                                       compute_dtype="", trunk_int8=True),
+                           vocab, 4,
+                           device="cpu", mesh=mesh)
+    trunk = trainer._calibrate_trunk_int8(
+        trainer.init_state(seed=0), torch.from_numpy(_rows(img, mesh)))
+    return numpy_tree({"scales": sampler.act_scales, "trunk_scales": trunk,
+                       "images": images})
+
+
 JOBS = {"loss": loss_job, "damsm": damsm_job, "gan": gan_job,
-        "sample": sample_job}
+        "sample": sample_job, "int8": int8_job}
 
 
 # ------------------------------------------------------------- the ranks
