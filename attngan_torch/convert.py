@@ -62,7 +62,15 @@ A pretrained trunk (``--pretrained-cnn``) is read from the torchvision
 Inception-v3 ``.pth`` itself by ``load_pretrained_trunk``: the port's trunk
 has torchvision's keys, so only the classifier heads and the BN counters
 are dropped. The JAX CLI reads the flax msgpack that
-tools/convert_torch_weights.py makes from the same file.
+tools/convert_torch_weights.py makes from the same file. A torchvision
+vgg19_bn ``.pth`` loads the same way (``load_torchvision_vgg19_bn``: the
+``features.*`` entries without the BN counters).
+
+The JAX package's DFCVAE, AutoEncoder and VGG19BNFeatures variables,
+flattened with "/" under ``params`` and ``batch_stats``, load through
+``load_vae_flat`` and ``load_vgg_flat``. A flax ``ConvTranspose`` kernel
+(kH, kW, I, O) becomes torch's (I, O, kH, kW) FLIPPED in space: flax
+applies it unflipped (models/vae.py::ConvTransposeSame).
 """
 
 from __future__ import annotations
@@ -485,6 +493,111 @@ def load_resnet_flat(flat: Mapping[str, np.ndarray], model: torch.nn.Module
     """Fill a ResNet18 in place; raises on any key missing or left over on
     either side, or a shape that disagrees."""
     model.load_state_dict(convert_resnet_flat(flat), strict=True)
+
+
+# ------------------------------------------------- DFCVAE, AutoEncoder, VGG
+
+def _vae_value(scope: str, leaf: str, value) -> torch.Tensor:
+    t = torch.from_numpy(np.array(value, dtype=np.float32))
+    if scope.startswith("ConvTranspose_") and leaf == "kernel":
+        # flax's (kH, kW, I, O), applied unflipped -> torch's (I, O, kH, kW)
+        return t.permute(2, 3, 0, 1).flip(2, 3).contiguous()
+    return _layout(value)
+
+
+def _vae_key(key: str, depth: int) -> str:
+    """'params/TorchBatchNorm_9/scale' -> 'dec_bn.1.weight' (a DFCVAE of
+    ``depth`` hidden widths); 'batch_stats/DownBlockLeakyReLU_3/
+    TorchBatchNorm_0/mean' -> 'down.3.bn.running_mean' (an AutoEncoder)."""
+    tree, *scopes, leaf = key.split("/")
+    leaves = _RESNET_LEAVES.get(tree, {})
+    if not scopes or leaf not in leaves:
+        raise KeyError(f"unexpected VAE leaf {key!r}")
+    parts = []
+    for scope in scopes:
+        name, _, index = scope.rpartition("_")
+        if not index.isdigit():
+            parts.append(scope)                 # fc_mu, fc1, decoder_input
+            continue
+        i = int(index)
+        if name in ("DownBlockLeakyReLU", "UpBlockReLU"):
+            parts.append(f"{'down' if name[0] == 'D' else 'up'}.{i}")
+        elif name == "Conv" and len(scopes) > 1:
+            parts.append("conv")
+        elif name == "TorchBatchNorm" and len(scopes) > 1:
+            parts.append("bn")
+        elif name == "Conv":
+            parts.append(f"encoder.{i}" if i < depth else "out_conv")
+        elif name == "TorchBatchNorm":
+            parts.append(f"enc_bn.{i}" if i < depth else f"dec_bn.{i - depth}")
+        elif name == "ConvTranspose":
+            parts.append(f"decoder.{i}")
+        else:
+            raise KeyError(f"unexpected VAE scope {scope!r} in {key!r}")
+    return ".".join(parts + [leaves[leaf]])
+
+
+def convert_vae_flat(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``DFCVAE``'s or ``AutoEncoder``'s variables, flattened with
+    "/" under ``params`` and ``batch_stats``, -> the models/vae.py module's
+    state_dict: conv kernels HWIO -> OIHW, a ConvTranspose kernel HWIO ->
+    (I, O, kH, kW) flipped (flax does not flip it), Dense (in, out) ->
+    (out, in), BN scale / bias / mean / var -> weight / bias /
+    running_mean / running_var."""
+    depth = len({k.split("/")[1] for k in flat
+                 if k.split("/")[1].startswith("ConvTranspose_")})
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        scope, leaf = key.split("/")[1], key.rsplit("/", 1)[1]
+        _put(sd, _vae_key(key, depth), _vae_value(scope, leaf, value), key)
+    return sd
+
+
+def load_vae_flat(flat: Mapping[str, np.ndarray], model: torch.nn.Module
+                  ) -> None:
+    """Fill a DFCVAE or AutoEncoder in place; raises on any key missing or
+    left over on either side, or a shape that disagrees."""
+    model.load_state_dict(convert_vae_flat(flat), strict=True)
+
+
+def convert_vgg_flat(flat: Mapping[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+    """The JAX ``VGG19BNFeatures``' variables, flattened with "/" under
+    ``params`` and ``batch_stats`` ('params/features_14/kernel') -> the
+    port's torchvision keys ('features.14.weight')."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        tree, scope, leaf = key.split("/")
+        leaves = _RESNET_LEAVES.get(tree, {})
+        m = re.fullmatch(r"features_(\d+)", scope)
+        if m is None or leaf not in leaves:
+            raise KeyError(f"unexpected VGG leaf {key!r}")
+        _put(sd, f"features.{m[1]}.{leaves[leaf]}", _layout(value), key)
+    return sd
+
+
+def load_vgg_flat(flat: Mapping[str, np.ndarray], model: torch.nn.Module
+                  ) -> None:
+    """Fill a VGG19BNFeatures in place, strictly."""
+    model.load_state_dict(convert_vgg_flat(flat), strict=True)
+
+
+def torchvision_vgg_state_dict(state_dict: Mapping[str, torch.Tensor]
+                               ) -> Dict[str, torch.Tensor]:
+    """A torchvision vgg19_bn ``state_dict`` -> models/vgg.py's
+    VGG19BNFeatures': the ``features.*`` entries without the BN counters
+    (the classifier is not part of the tap walk, VAE.py:143-162)."""
+    return {k: v for k, v in state_dict.items()
+            if k.startswith("features.")
+            and not k.endswith(".num_batches_tracked")}
+
+
+def load_torchvision_vgg19_bn(path: str) -> Dict[str, torch.Tensor]:
+    """The features state_dict of the torchvision vgg19_bn ``.pth`` at
+    ``path`` (weights only), for ``VGG19BNFeatures.load_state_dict(...,
+    strict=True)``."""
+    return torchvision_vgg_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))
 
 
 # ------------------------------------------------- torchvision Inception-v3

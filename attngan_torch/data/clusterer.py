@@ -54,6 +54,7 @@ from attngan_torch.core.runtime import resolve_device
 from attngan_torch.data.dataset import Dataset, preprocess_pyramid
 
 METHODS = ("kmeans", "agglomerative_single_linkage", "agglomerative_complete")
+SILHOUETTE_ROWS = 1024      # rows of the distance matrix held at once
 KMEANS_INIT, KMEANS_ITERS, KMEANS_TOL = 10, 300, 1e-4
 
 
@@ -86,6 +87,44 @@ def adjusted_rand_index(a, b) -> float:
     if top == expected:          # both a single cluster, or both singletons
         return 1.0
     return (index - expected) / (top - expected)
+
+
+def silhouette_score(x, labels) -> float:
+    """Mean silhouette coefficient of ``labels`` over the Euclidean
+    distances of ``x`` (n, d), as scikit-learn's silhouette_score computes
+    it: the squared distance as |a|^2 + |b|^2 - 2 a.b in fp64, clipped at
+    0 and 0 on the diagonal, and the rest in the data's type (fp32 for
+    fp32 data, else fp64); a sample in a cluster of its own scores 0.
+    Needs 2 <= clusters <= n - 1."""
+    x = np.asarray(x)
+    _, lab = np.unique(np.asarray(labels), return_inverse=True)
+    n, k = lab.size, int(lab.max()) + 1
+    if not 1 < k < n:
+        raise ValueError(f"Number of labels is {k}. Valid values are 2 to "
+                         f"n_samples - 1 (inclusive)")
+    dtype = np.float32 if x.dtype == np.float32 else np.float64
+    xf = x.astype(np.float64)
+    sq = np.einsum("ij,ij->i", xf, xf)
+    onehot = np.eye(k)[lab]
+    counts = np.bincount(lab, minlength=k)
+    intra, inter = np.empty(n, dtype), np.empty(n, dtype)
+    for start in range(0, n, SILHOUETTE_ROWS):
+        stop = min(n, start + SILHOUETTE_ROWS)
+        rows = np.arange(stop - start)
+        d2 = -2.0 * (xf[start:stop] @ xf.T)
+        d2 += sq[start:stop, None]
+        d2 += sq[None, :]
+        d2 = np.maximum(d2.astype(dtype), 0)
+        d2[rows, rows + start] = 0
+        sums = (np.sqrt(d2).astype(np.float64) @ onehot).astype(dtype)
+        own = lab[start:stop]
+        intra[start:stop] = sums[rows, own]
+        sums[rows, own] = np.inf
+        inter[start:stop] = (sums / counts).astype(dtype).min(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        intra = (intra / (counts - 1)[lab]).astype(dtype)
+        sil = np.nan_to_num((inter - intra) / np.maximum(intra, inter))
+    return float(np.mean(sil))
 
 
 # ---------------------------------------------------------- agglomerative

@@ -77,6 +77,11 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.2)
 
 
+def calculate_out_hw(hw: int, k: int, s: int, p: int = 0) -> int:
+    """Conv output size: floor((hw + 2p - k) / s) + 1."""
+    return (hw + 2 * p - k) // s + 1
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of (B, C) or (B, C, H, W) with TorchBatchNorm's
     semantics and fp32 parameters and statistics."""
@@ -100,7 +105,8 @@ class BatchNorm(nn.Module):
             k, b = self.fold()
             shape = (1, -1) + (1,) * (x.dim() - 2)
             return x * k.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
-        if self.mesh is not None:
+        if self.mesh is not None or x.numel() == x.shape[1]:
+            # F.batch_norm refuses one value a channel; JAX's gives the bias
             return self._global_batch_norm(x)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, training=True,
@@ -108,16 +114,21 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
     def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the rows of every rank of ``self.mesh``."""
+        """Train mode over the rows of every rank of ``self.mesh`` (or of
+        this process's rows where it has none)."""
         from attngan_torch.parallel.mesh import all_reduce_sum
+
+        def total(t: torch.Tensor) -> torch.Tensor:
+            return t if self.mesh is None else all_reduce_sum(t, self.mesh)
 
         xf = x.float()
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        n = xf.numel() // xf.shape[1] * self.mesh.size
-        mean = all_reduce_sum(xf.sum(dims), self.mesh) / n
+        ranks = 1 if self.mesh is None else self.mesh.size
+        n = xf.numel() // xf.shape[1] * ranks
+        mean = total(xf.sum(dims)) / n
         centred = xf - mean.view(shape)
-        var = all_reduce_sum(centred.square().sum(dims), self.mesh) / n
+        var = total(centred.square().sum(dims)) / n
         with torch.no_grad():
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var * (n / max(n - 1, 1)), BN_MOMENTUM)
@@ -194,6 +205,49 @@ class DownBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(self.bn(conv(x, self.conv, self.dtype)))
+
+
+class UpBlockReLU(nn.Module):
+    """2x nearest upsample -> conv3x3 (no bias) -> BN -> ReLU."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv3x3(in_features, out_features)
+        self.bn = BatchNorm(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(conv(upsample_nearest_2x(x), self.conv,
+                                   self.dtype)))
+
+
+class DownBlockLeakyReLU(nn.Module):
+    """conv4x4 stride 2 (with bias) -> BN -> LeakyReLU(0.2)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv4x4_down(in_features, out_features, bias=True)
+        self.bn = BatchNorm(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.bn(conv(x, self.conv, self.dtype)))
+
+
+class Block3x3Relu(nn.Module):
+    """conv3x3(2 * out) -> BN -> GLU, same spatial size."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv3x3(in_features, 2 * out_features)
+        self.bn = BatchNorm(2 * out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return glu(self.bn(conv(x, self.conv, self.dtype)))
 
 
 class Block3x3LeakyRelu(nn.Module):

@@ -1,18 +1,59 @@
-"""Step timing and a profiler window for the training loops.
+"""Step timing, a profiler window and a profiler context for the training
+loops, and a parameter count: port of attngan_tpu/utils/timing.py (the
+port imports nothing of the JAX package).
 
-Port of the framework-free part of attngan_tpu/utils/timing.py (the port
-imports nothing of the JAX package): ``StepTimer`` as is, and
-``StepWindowProfiler`` over torch.profiler instead of jax.profiler. The
-JAX module's ``block``, ``timer`` and ``device_timeit`` fence XLA's
-asynchronous dispatch and have no counterpart here.
+``StepTimer`` and ``count_parameters`` as they are; ``StepWindowProfiler``
+and ``profile_trace`` over torch.profiler instead of jax.profiler, writing
+Chrome traces. The JAX module's ``block``, ``timer`` and ``device_timeit``
+fence XLA's asynchronous dispatch through a remote device; they have no
+counterpart: a CUDA timing here ends in ``torch.cuda.synchronize()`` or
+reads CUDA events.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
 import torch
+
+
+def _profiler():
+    """A torch.profiler over the CPU, and the GPU where the process has one."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, enabled: bool = True):
+    """Trace the block under torch.profiler into ``logdir/trace.json`` (a
+    Chrome trace: chrome://tracing or Perfetto); a no-op when not
+    ``enabled``."""
+    if not enabled:
+        yield
+        return
+    prof = _profiler()
+    prof.__enter__()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def count_parameters(module: torch.nn.Module, name: str = "model",
+                     verbose: bool = True) -> int:
+    """Total parameter count of ``module`` (reference trainer.py:27-31)."""
+    total = sum(p.numel() for p in module.parameters())
+    if verbose:
+        print(f"Model {name} has {total} parameters")
+    return total
 
 
 class StepWindowProfiler:
@@ -39,10 +80,7 @@ class StepWindowProfiler:
             return
         self._step += 1
         if self._step == self.start:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=activities)
+            self._prof = _profiler()
             self._prof.__enter__()
         elif self._step == self.stop:
             self.close()

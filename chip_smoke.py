@@ -153,7 +153,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    both steps' steps/s in turns; ``int8_vs_bf16_fid`` at batch 64 on the
    calibrated random featurizer, a set's FID against itself, and the
    featurizer's fp32 features on the card against the CPU's;
-12. one ``{"kernels": [...]}`` line (launches summed over every path's
+12. the last modules (``last_modules_phase``): VGG19-BN from a seeded
+   torchvision ``.pth`` (``load_torchvision_vgg19_bn``) at 256^2, the
+   default taps, fp32, batch 16 (ms a forward, its FLOPs), two images
+   against the CPU's; the default DFCVAE's deep-feature loss step (a
+   train-mode forward, VGG features of the reconstructions and inputs,
+   ``dfc_vae_loss``, the backward) at batch 16 (ms a step, peak MB,
+   FLOPs), fp32 at batch 2 against the CPU (the loss, each gradient in
+   norm); ``HierarchicalClusterer`` with ``VAEEmbedder(DFCVAE(), "dfc")``
+   and then ``VAEEmbedder(AutoEncoder(), "ae")`` (seeded He weights, fixed
+   noise) over phase 8's 512 scene JPEGs on the card and on the CPU (the
+   embeddings, one tree, the same partitions at every k; img/s);
+   ``attngan_torch.tools.mfu_report``'s three paths (the sampler at 64,
+   the pretrain step at 64, the GAN step at 16: 0 < mfu <= 1.05, the
+   launches exactly the calls'); then every other tool once at a small
+   size, its exit code and JSON keys: ``collision_check``, ``fid_curve``
+   and ``int8_fid_run`` on a full-width CLI chain of its own (32 JPEGs,
+   vocabulary capped at 32, so that classes collide), ``attnmaps_bench``,
+   ``cluster_quality_run``, ``make_photo_corpus`` (non-zero without
+   bundled photos, as it must) and ``convert_torch_weights`` for the
+   three trunks;
+13. one ``{"kernels": [...]}`` line (launches summed over every path's
    counted call), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -3040,6 +3060,477 @@ def side_tiers_phase(torch, card_name: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------- phase 12: last modules
+
+LAST_BATCH = 16           # VGG19-BN features and the DFCVAE loss step
+LAST_CHECK_BATCH = 2      # the fp32 DFCVAE step and VGG taps vs the CPU
+LAST_STEPS = 10           # timed DFCVAE loss steps
+# the card's fp32 (TF32 off) against the CPU's: VGG taps and VAE embeddings
+# within 1e-4 of their largest magnitude (44 conv layers; other conv
+# algorithms); the DFCVAE loss within 1e-4 relative and each parameter's
+# gradient within 1e-3 in norm (its 1x1 bottleneck's train-mode BN over 2
+# rows amplifies rounding, as on the CPU against JAX) of its own norm; a
+# conv bias ahead of a train-mode BN, whose true gradient is 0, of
+# VAE_GRAD_FLOOR of the whole gradient's norm
+VGG_RTOL, VAE_EMBED_RTOL = 1e-4, 1e-4
+VAE_LOSS_RTOL, VAE_GRAD_RTOL, VAE_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
+VAE_EMBED_SEED = 5
+CHAIN_IMAGES = 32         # JPEGs (64 records) of the tools' CLI chain
+MFU_ARGV = ["sampler", "damsm", "gan", "--sampler-batch", "64",
+            "--damsm-batch", "64", "--gan-batch", "16"]
+MFU_CALLS = {"sampler": 1 + 3 * 20, "damsm": 1 + 3 * 30, "gan": 1 + 3 * 20}
+MFU_MAX = 1.05
+TOOL_KEYS = {
+    "attnmaps_bench": [
+        {"metric", "value", "unit", "images", "batch_size", "image_encoder",
+         "seconds", "reference_img_per_sec", "vs_reference"},
+        {"metric", "value", "unit", "images", "seconds", "vs_reference"}],
+    "cluster_quality_run": [
+        {"n_images", "k_ladder", "method", "reducer", "levels",
+         "grid_member_counts", "caption_swap_demo"}],
+    "collision_check": [
+        {"batch", "excluded_offdiag_pairs", "distinct_classes", "loss_masked",
+         "loss_ablated", "delta", "words_delta", "sent_delta"},
+        {"summary", "total_excluded_pairs", "batches"}],
+    "fid_curve": [{"step", "fid", "fid_std", "fid_seeds"},
+                  {"first", "last", "decreasing"}],
+    "int8_fid_run": [{"fid_int8_vs_float"}],     # without --real-dir
+    "make_photo_corpus": [],
+    "convert_torch_weights": [],
+    "mfu_report": [{"path", "sec_per_call", "unit_per_call", "windows_ms",
+                    "model_gflops_per_call", "device_kind", "achieved_tflops",
+                    "peak_tflops", "mfu"}],
+}
+
+
+def he_init_(torch, module, seed: int):
+    """Seeded He-normal weights on every conv, transposed conv and Linear
+    (a transposed conv's fan-in: its input channels x k^2 / stride^2), zero
+    biases: the signal keeps its scale through eval-mode BN at its initial
+    statistics. Returns ``module``."""
+    gen = torch.Generator().manual_seed(seed)
+    nn = torch.nn
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel() / 4
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+            else:
+                continue
+            m.weight.normal_(0, math.sqrt(2.0 / fan_in), generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
+
+
+def write_vgg_pth(torch, path: str) -> dict:
+    """A seeded VGG19-BN ``features`` trunk saved at ``path`` as a
+    torchvision vgg19_bn state_dict (every BN's ``num_batches_tracked`` and
+    a classifier entry included), drawn as tests/torch_oracles.py's
+    ``randomize_`` draws: fan-in scaled convs, BN weights, biases and
+    statistics away from 1 and 0. Returns the port's state_dict."""
+    from attngan_torch.models.vgg import VGG19BNFeatures
+
+    gen = torch.Generator().manual_seed(12)
+    sd = VGG19BNFeatures().state_dict()
+    bns = {k.rsplit(".", 1)[0] for k in sd if k.endswith("running_mean")}
+    torchvision = {}
+    for key, value in sd.items():
+        module, leaf = key.rsplit(".", 1)
+        if value.dim() == 4:
+            value.normal_(0, value[0].numel() ** -0.5, generator=gen)
+        elif module not in bns:                         # a conv's bias
+            value.normal_(0, 0.05, generator=gen)
+        elif leaf in ("weight", "running_var"):
+            value.uniform_(0.5, 1.5, generator=gen)
+        else:                                           # bias, running_mean
+            value.normal_(0, 0.1, generator=gen)
+        torchvision[key] = value
+        if leaf == "running_var":
+            torchvision[f"{module}.num_batches_tracked"] = torch.tensor(0)
+    torchvision["classifier.6.bias"] = torch.zeros(1000)
+    torch.save(torchvision, path)
+    return sd
+
+
+def last_vgg(torch, path: str, card_name: str):
+    """VGG19-BN from a torchvision .pth through load_torchvision_vgg19_bn,
+    fp32, default taps, 256^2 at LAST_BATCH: ms a forward, its FLOPs; two
+    images against the CPU. Returns (card module, CPU module)."""
+    from attngan_torch.convert import load_torchvision_vgg19_bn
+    from attngan_torch.models.vgg import VGG19BNFeatures
+    from attngan_torch.utils.mfu import model_flops
+
+    sd = load_torchvision_vgg19_bn(path)
+    cpu = VGG19BNFeatures()
+    cpu.load_state_dict(sd, strict=True)
+    vgg = VGG19BNFeatures()
+    vgg.load_state_dict(sd, strict=True)
+    vgg = vgg.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator().manual_seed(13)
+    x = torch.rand((LAST_BATCH, 256, 256, 3), generator=gen) * 2 - 1
+    xc = x.cuda()
+    with torch.no_grad():
+        flops, taps = model_flops(vgg, xc)
+        ms = time_ms(lambda: vgg(xc), iters=10)
+        want = cpu(x[:LAST_CHECK_BATCH])
+    errs = []
+    for t, got, ref in zip(vgg.taps, taps, want):
+        err = float((got[:LAST_CHECK_BATCH].cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        errs.append(err / scale)
+        fail_unless(torch.isfinite(got).all() and err <= VGG_RTOL * scale,
+                    f"VGG tap {t}: card vs CPU {err} (largest {scale})")
+    print(json.dumps({
+        "phase": "last_modules", "step": "vgg19_bn", "batch": LAST_BATCH,
+        "taps": list(vgg.taps), "shapes": [list(t.shape) for t in taps],
+        "ms": ms, "gflop": flops / 1e9,
+        "tflops": flops / ms / 1e9, "fp32_peak_tflops": 67.0,
+        "rel_err_vs_cpu": errs, "card": card_name}), flush=True)
+    return vgg, cpu
+
+
+def dfc_step(torch, model, vgg, x, eps):
+    """The function JAX differentiates: a train-mode forward, the VGG
+    features of the reconstructions and of the inputs, dfc_vae_loss, the
+    backward into the DFCVAE. Returns the loss."""
+    from attngan_torch.models.vae import dfc_vae_loss
+
+    model.zero_grad(set_to_none=True)
+    recons, mu, logvar = model(x, eps=eps)
+    with torch.no_grad():
+        want = vgg(x)
+    loss = dfc_vae_loss(recons, x, mu, logvar, vgg(recons), want)
+    loss.backward()
+    return loss
+
+
+def last_dfcvae(torch, vgg, vgg_cpu, card_name: str) -> None:
+    """The default DFCVAE's deep-feature loss step at LAST_BATCH: finite
+    loss and gradients, ms a step, peak MB, FLOPs; at LAST_CHECK_BATCH in
+    fp32 against the CPU (loss, each gradient in norm)."""
+    from attngan_torch.models.vae import DFCVAE
+    from attngan_torch.utils.mfu import model_flops
+
+    init = he_init_(torch, DFCVAE(), 20).state_dict()
+    gen = torch.Generator().manual_seed(14)
+    x = torch.rand((LAST_BATCH, 256, 256, 3), generator=gen) * 2 - 1
+    eps = torch.randn((LAST_BATCH, 128), generator=gen)
+
+    def model_on(device):
+        m = DFCVAE()
+        m.load_state_dict(init)
+        return m.to(device, memory_format=torch.channels_last).train()
+
+    model = model_on("cuda")
+    xc, ec = x.cuda(), eps.cuda()
+    flops, loss = model_flops(dfc_step, torch, model, vgg, xc, ec)
+    fail_unless(math.isfinite(loss.item()) and all(
+        torch.isfinite(p.grad).all() for p in model.parameters()),
+        f"DFCVAE step: loss {float(loss)} or a gradient not finite")
+    for _ in range(2):
+        dfc_step(torch, model, vgg, xc, ec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(LAST_STEPS):
+        loss = dfc_step(torch, model, vgg, xc, ec)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / LAST_STEPS * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    n = LAST_CHECK_BATCH
+    card = model_on("cuda")
+    cpu = model_on("cpu")
+    got = float(dfc_step(torch, card, vgg, xc[:n], ec[:n]))
+    want = float(dfc_step(torch, cpu, vgg_cpu, x[:n], eps[:n]))
+    # the bias of a conv that feeds a train-mode BN (every encoder conv and
+    # decoder transposed conv) has a true gradient of 0, as the BN takes
+    # the mean out: its computed one is rounding, held against
+    # VAE_GRAD_FLOOR of the whole gradient's norm; every other leaf against
+    # its own norm
+    fail_unless(card.training and cpu.training, "DFCVAE not in train mode")
+    pre_bn = {f"{seq}.{i}.bias" for seq in ("encoder", "decoder")
+              for i in range(len(getattr(card, seq)))}
+    total = torch.cat([q.grad.flatten() for q in cpu.parameters()]).norm()
+    worst = {"own_norm": ("", 0.0), "pre_bn_bias": ("", 0.0)}
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        group = "pre_bn_bias" if name in pre_bn else "own_norm"
+        scale = VAE_GRAD_FLOOR * total if name in pre_bn else q.grad.norm()
+        rel = float((p.grad.cpu() - q.grad).norm() / scale)
+        worst[group] = max(worst[group], (name, rel), key=lambda w: w[1])
+    fail_unless(abs(got - want) <= VAE_LOSS_RTOL * abs(want),
+                f"DFCVAE loss card {got} vs CPU {want}")
+    fail_unless(all(w[1] <= VAE_GRAD_RTOL for w in worst.values()),
+                f"DFCVAE gradient card vs CPU: {worst}")
+    print(json.dumps({
+        "phase": "last_modules", "step": "dfcvae_loss_step",
+        "batch": LAST_BATCH, "latent": 128,
+        "hidden": list(model.hidden_dims),
+        "loss": float(loss), "ms_per_step": ms, "peak_mb": peak_mb,
+        "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+        "fp32_vs_cpu": {"batch": n, "loss_card": got, "loss_cpu": want,
+                        "worst_grad_rel": worst},
+        "card": card_name}), flush=True)
+
+
+def last_embedders(torch, corpus: str, card_name: str) -> None:
+    """HierarchicalClusterer with VAEEmbedder(DFCVAE(), "dfc") and then
+    VAEEmbedder(AutoEncoder(), "ae") (seeded He weights, the noise from
+    VAE_EMBED_SEED) over the scene JPEGs on the card and on the CPU: the
+    embeddings within VAE_EMBED_RTOL, one tree (same_tree), the same
+    partitions at every k; img/s on the card."""
+    import copy
+
+    import numpy as np
+
+    from attngan_torch.data.clusterer import (
+        HierarchicalClusterer,
+        adjusted_rand_index,
+        cluster_ladder,
+        determine_k_values,
+    )
+    from attngan_torch.data.dataset import preprocess_pyramid
+    from attngan_torch.data.streaming import StreamingDataset
+    from attngan_torch.models.vae import DFCVAE, AutoEncoder, VAEEmbedder
+
+    dataset = StreamingDataset(corpus)
+    pixels = torch.as_tensor(dataset._batch_pixels(dataset.records),
+                             device="cuda")
+    flip = torch.as_tensor([r.flip for r in dataset.records], device="cuda")
+    images = preprocess_pyramid(pixels, flip)[256]
+    del pixels
+    ks = determine_k_values(1000, 5)
+    for kind, model in (("dfc", he_init_(torch, DFCVAE(), 21)),
+                        ("ae", he_init_(torch, AutoEncoder(), 22))):
+        emb, seconds = {}, {}
+        for dev in ("cuda", "cpu"):
+            embedder = VAEEmbedder(copy.deepcopy(model), kind,
+                                   seed=VAE_EMBED_SEED, device=dev)
+            t = time.perf_counter()
+            emb[dev] = HierarchicalClusterer(
+                embedder=embedder, device=dev).embed_dataset(dataset)
+            seconds[dev] = time.perf_counter() - t
+        err = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+        scale = float(np.abs(emb["cpu"]).max())
+        fail_unless(np.isfinite(emb["cuda"]).all()
+                    and err <= VAE_EMBED_RTOL * scale,
+                    f"{kind} embeddings: card vs CPU {err} (largest {scale})")
+        embedder = VAEEmbedder(copy.deepcopy(model), kind,
+                               seed=VAE_EMBED_SEED, device="cuda")
+        embedder.embed(images[:64], 32)                 # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        embedder.embed(images, 32)
+        embed_s = time.perf_counter() - t
+        tree = same_tree(emb["cuda"], emb["cpu"])
+        labels = {dev: cluster_ladder(e, ks, "agglomerative_complete")
+                  for dev, e in emb.items()}
+        split = [k for k, a, b in zip(ks, labels["cuda"], labels["cpu"])
+                 if adjusted_rand_index(a, b) != 1.0]
+        fail_unless(not split, f"{kind}: card and CPU partitions differ at "
+                    f"k {split}")
+        renumbered = [k for k, a, b in zip(ks, labels["cuda"], labels["cpu"])
+                      if not np.array_equal(a, b)]
+        print(json.dumps({
+            "phase": "last_modules", "step": f"vae_embedder_{kind}",
+            "records": len(dataset.records), "dims": emb["cuda"].shape[1],
+            "img_per_s": len(dataset.records) / embed_s,
+            "embed_dataset_s": seconds["cuda"],
+            "cpu_embed_dataset_s": seconds["cpu"],
+            "max_abs_err": err, "embedding_abs_max": scale,
+            "partitions_equal_cpu": True, "renumbered_at_k": renumbered,
+            **tree, "card": card_name}), flush=True)
+    del images
+
+
+def run_tool(torch, counters, name: str, argv: list) -> dict:
+    """``attngan_torch.tools.<name>.main(argv)`` in this process, the
+    launch counters set to 0 just before and read just after: its exit
+    code (a SystemExit's), its printed JSON lines, seconds, launches."""
+    import contextlib
+    import importlib
+    import io
+
+    module = importlib.import_module(f"attngan_torch.tools.{name}")
+    for c in counters.values():
+        c.launches = 0
+    out, code, message = io.StringIO(), 0, ""
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            module.main(argv)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else (
+                0 if e.code is None else 1)
+            message = "" if isinstance(e.code, int) else str(e.code)
+    torch.cuda.synchronize()
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith("{")]
+    kinds = TOOL_KEYS[name]
+    for line in lines:
+        fail_unless(set(line) in kinds, f"{name}: keys {sorted(line)}")
+    fail_unless(all(any(set(line) == k for line in lines) for k in kinds),
+                f"{name}: a kind of line missing from {lines}")
+    return {"code": code, "message": message, "lines": lines,
+            "seconds": time.perf_counter() - t,
+            "launches": {n: c.launches for n, c in counters.items()}}
+
+
+def last_mfu(torch, counters, card_name: str) -> dict:
+    """attngan_torch.tools.mfu_report on its three paths (the sampler at
+    batch 64, the pretrain step at 64, the GAN step at 16): 0 < mfu <=
+    MFU_MAX each; the launches exactly the calls' (K1 2, K2 2 a sampling
+    call; K4 1, K5 2 a pretrain step; K1 2, K4 1, K5 2 a GAN step).
+    Returns the launches."""
+    run = run_tool(torch, counters, "mfu_report", MFU_ARGV)
+    fail_unless(run["code"] == 0, f"mfu_report exited {run['code']}")
+    calls = MFU_CALLS
+    want = {name: 0 for name in counters}
+    want.update(word_attention=2 * calls["sampler"] + 2 * calls["gan"],
+                upblock_fused_eval=2 * calls["sampler"],
+                damsm_similarity=calls["damsm"] + calls["gan"],
+                damsm_similarity_bwd_square=2 * calls["damsm"]
+                + 2 * calls["gan"])
+    fail_unless(run["launches"] == want,
+                f"mfu_report launches {run['launches']}, expected {want}")
+    for line in run["lines"]:
+        fail_unless(line["mfu"] is not None and 0 < line["mfu"] <= MFU_MAX,
+                    f"{line['path']}: mfu {line['mfu']}")
+        print(json.dumps({
+            "phase": "last_modules", "step": "mfu", **{
+                k: line[k] for k in ("path", "sec_per_call", "windows_ms",
+                                     "model_gflops_per_call",
+                                     "achieved_tflops", "peak_tflops",
+                                     "mfu", "device_kind")},
+            "card": card_name}), flush=True)
+    print(json.dumps({"phase": "last_modules", "step": "mfu_launches",
+                      "launches": run["launches"],
+                      "seconds": run["seconds"]}), flush=True)
+    return run["launches"]
+
+
+def last_tools(torch, counters, d: str, corpus: str, vgg_pth: str,
+               card_name: str) -> dict:
+    """Every other tool once at a small size, each one's exit code, JSON
+    keys and seconds; the checkpoint tools on a chain of the port's CLIs
+    over CHAIN_IMAGES of the scene JPEGs at full width with a capped
+    vocabulary (32), so that classes collide; the FID tools at one seed
+    and without real images (each FID is a ~10 s ``sqrtm`` of 2048^2 on
+    the host). Returns the launches."""
+    from attngan_torch.cli import pretrain, train
+    from attngan_torch.data.synthetic import find_bundled_photos
+    from attngan_torch.models.cnn_encoder import InceptionV3Trunk
+    from attngan_torch.models.resnet import init_resnet18
+
+    small = os.path.join(d, "chain_images")
+    os.makedirs(small)
+    for name in sorted(os.listdir(corpus))[:CHAIN_IMAGES]:
+        shutil.copy(os.path.join(corpus, name), small)
+    caps = os.path.join(d, "chain_caps.json")
+    ckpt = os.path.join(d, "chain_ckpt")
+    common = ["--data-root", small, "--batch-size", "16", "--captions-path",
+              caps, "--checkpoint-dir", ckpt,
+              "--image-dir", os.path.join(d, "chain_img")]
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    pretrain.main([*common, "--cluster", "--max-vocab-size", "32",
+                   "--epochs", "1"])
+    train.main([*common, "--epochs", "2", "--damsm-checkpoint",
+                os.path.join(ckpt, "damsm")])
+    torch.cuda.synchronize()
+    chain = {n: c.launches for n, c in counters.items()}
+    add(chain)
+    print(json.dumps({"phase": "last_modules", "step": "tools_cli_chain",
+                      "seconds": time.perf_counter() - t,
+                      "launches": {k: v for k, v in chain.items() if v},
+                      "gan_saves": sorted(s for s in os.listdir(
+                          os.path.join(ckpt, "gan")) if s.startswith("step_")),
+                      "card": card_name}), flush=True)
+
+    photos = bool(find_bundled_photos())
+    trunk_pth = os.path.join(d, "inception.pth")
+    write_pretrained_trunk(torch, trunk_pth)
+    resnet_pth = os.path.join(d, "resnet18.pth")
+    torch.save({**init_resnet18(3).state_dict(),
+                "fc.weight": torch.zeros(1000, 512),
+                "fc.bias": torch.zeros(1000)}, resnet_pth)
+    runs = [
+        ("collision_check", ["--checkpoint", os.path.join(ckpt, "damsm"),
+                             "--captions-path", caps, "--data-root", small,
+                             "--batches", "4", "--batch-size", "16"]),
+        ("fid_curve", ["--checkpoint", os.path.join(ckpt, "gan"),
+                       "--captions-path", caps, "--data-root", small,
+                       "--n", "64", "--max-real", "64", "--seeds", "1",
+                       "--out", os.path.join(d, "fid_curve")]),
+        ("int8_fid_run", ["--checkpoint", os.path.join(ckpt, "gan"),
+                          "--captions-path", caps, "--n", "64"]),
+        ("attnmaps_bench", ["--n", "256", "--png"]),
+        ("cluster_quality_run", ["--num-images", "128", "--out",
+                                 os.path.join(d, "cluster_quality")]),
+        ("make_photo_corpus", ["--num-images", "8", "--out",
+                               os.path.join(d, "photos")]),
+        *(("convert_torch_weights", [kind, src, os.path.join(d, f"{kind}.pt")])
+          for kind, src in (("inception", trunk_pth),
+                            ("resnet18", resnet_pth),
+                            ("vgg19_bn", vgg_pth))),
+    ]
+    for name, argv in runs:
+        run = run_tool(torch, counters, name, argv)
+        add(run["launches"])
+        if name == "make_photo_corpus" and not photos:
+            fail_unless(run["code"] != 0
+                        and "no bundled photographs" in run["message"],
+                        f"make_photo_corpus without photos: {run}")
+        else:
+            fail_unless(run["code"] == 0, f"{name} exited {run['code']}: "
+                        f"{run['message']}")
+        if name == "collision_check":
+            fail_unless(run["lines"][-1]["total_excluded_pairs"] > 0,
+                        f"collision_check: {run['lines'][-1]}")
+        print(json.dumps({
+            "phase": "last_modules", "step": f"tool_{name}",
+            "argv": argv[:1] if name == "convert_torch_weights" else None,
+            "exit_code": run["code"], "message": run["message"] or None,
+            "seconds": run["seconds"], "json_lines": len(run["lines"]),
+            "last_line": run["lines"][-1] if run["lines"] else None,
+            "launches": {k: v for k, v in run["launches"].items() if v},
+            "card": card_name}, default=str), flush=True)
+    return total
+
+
+def last_modules_phase(torch, card_name: str) -> dict:
+    """Phase 12: VGG19-BN, the DFCVAE loss step, the VAE embedders in the
+    captioner, MFU of the three paths and every other tool. Returns
+    {kernel: launches over the phase's counted calls}."""
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as d:
+        vgg_pth = os.path.join(d, "vgg19_bn.pth")
+        write_vgg_pth(torch, vgg_pth)
+        vgg, vgg_cpu = last_vgg(torch, vgg_pth, card_name)
+        last_dfcvae(torch, vgg, vgg_cpu, card_name)
+        del vgg, vgg_cpu
+        corpus = os.path.join(d, "scenes")
+        os.makedirs(corpus)
+        write_scene_corpus(corpus)
+        last_embedders(torch, corpus, card_name)
+        launches = last_mfu(torch, counters, card_name)
+        for name, n in last_tools(torch, counters, d, corpus, vgg_pth,
+                                  card_name).items():
+            launches[name] = launches.get(name, 0) + n
+    print(json.dumps({"phase": "last_modules", "step": "launches",
+                      "launches": launches}), flush=True)
+    return launches
+
+
 def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     """Random weights leave every BatchNorm at mean 0, var 1, which shrinks
     the signal at each GLU until the images are a flat gray. Train-mode
@@ -3332,12 +3823,15 @@ def main() -> int:
     lap("data_parallel")
     side_launches = side_tiers_phase(torch, card_name)
     lap("side_tiers")
+    last_launches = last_modules_phase(torch, card_name)
+    lap("last_modules")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     # launches summed over every path: serving, pretrain, GAN step, loops,
-    # captioner, pretrain options, data parallel (every rank's), side tiers
+    # captioner, pretrain options, data parallel (every rank's), side
+    # tiers, the last modules (MFU and the tools)
     for counted in (damsm_launches, gan_launches, loop_launches,
                     captioner_launches, options_launches, dp_launches,
-                    side_launches):
+                    side_launches, last_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 
