@@ -4,3 +4,5 @@ The JAX package (attngan_tpu) stays the reference; this package imports
 nothing of it. Hand-written Hopper kernels live in csrc/ and are built at
 first use (ops/_build.py); each has a plain PyTorch version beside it.
 """
+
+__version__ = "0.1.0"

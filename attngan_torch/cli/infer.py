@@ -16,6 +16,11 @@ stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
 first two captions (--swap).
 
+Every command line of JAX's ``cli.infer`` parses: --df-dim and
+--image-encoder, which the generator does not read, are checked against
+the checkpoint's recorded values like the shape flags; --fused-attention
+names K1, the route the port always takes on the GPU.
+
 --int8 serves the generator's Conv / Dense sites in int8
 (infer/quantize.py: weights per output channel, activation scales
 calibrated on the first batch at --int8-percentile; K1 and K2 stay on the
@@ -59,7 +64,11 @@ import time
 BENCH_VOCAB = 1000
 # the benchmark's serving calls: one warm-up, then WINDOWS windows of ITERS
 BENCH_WINDOWS, BENCH_ITERS = 5, 4
-SHAPE_FLAGS = ("num_stages", "gf_dim", "emb_dim", "seq_len")
+# the model flags: each defaults to the checkpoint's recorded value, and an
+# explicit one that contradicts it is refused. The port serves only the
+# generator, so --df-dim and --image-encoder do nothing else.
+MODEL_FLAGS = ("num_stages", "gf_dim", "df_dim", "emb_dim", "seq_len",
+               "image_encoder")
 
 
 def parse_args(argv=None):
@@ -87,10 +96,21 @@ def parse_args(argv=None):
     # model shapes: default to the checkpoint's, else GanConfig's
     p.add_argument("--num-stages", type=int, default=None, choices=[1, 2, 3])
     p.add_argument("--gf-dim", type=int, default=None)
+    p.add_argument("--df-dim", type=int, default=None,
+                   help="checked against the checkpoint's recorded value "
+                        "(the discriminators are not served)")
     p.add_argument("--emb-dim", type=int, default=None)
     p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--image-encoder", default=None,
+                   choices=["inception_v3", "tiny"],
+                   help="checked against the checkpoint's recorded value "
+                        "(the image encoder is not served)")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--fused-attention", action="store_true",
+                   help="the K1 word-attention kernel, the route the port "
+                        "always takes on the GPU (JAX's opt-in flag); "
+                        "refused with --export")
     p.add_argument("--fused-upsample", default=None,
                    choices=["pallas", "packed", "packed64", "off"],
                    help="eval UpBlock route at >=64^2: 'pallas' (the "
@@ -135,14 +155,14 @@ def _config(args):
 
     mode = {None: True, "pallas": True, "off": False}.get(
         args.fused_upsample, args.fused_upsample)
-    shapes = {k: getattr(args, k) for k in SHAPE_FLAGS
+    shapes = {k: getattr(args, k) for k in MODEL_FLAGS
               if getattr(args, k) is not None}
     return GanConfig(compute_dtype=args.compute_dtype, fused_upsample=mode,
                      **shapes), shapes
 
 
 def _refuse_contradictions(shapes: dict, recorded: dict, where: str) -> None:
-    """An explicit shape flag must agree with what the checkpoint recorded."""
+    """An explicit model flag must agree with what the checkpoint recorded."""
     for name, value in shapes.items():
         if name in recorded and recorded[name] != value:
             raise SystemExit(
@@ -209,7 +229,10 @@ def _load_state(args, cfg, shapes, handler):
     else:
         ckpt, directory = _training_checkpoint(source)
         sidecar = load_config_sidecar(directory) or {}
-        recorded = {k: sidecar[k] for k in SHAPE_FIELDS if k in sidecar}
+        # a cli.train config.json records the whole GanConfig (a
+        # save_infer_state .pt records SHAPE_FIELDS alone)
+        recorded = {k: sidecar[k] for k in SHAPE_FIELDS + ("image_encoder",)
+                    if k in sidecar}
         if recorded:
             print(f"using the model config recorded at training time: "
                   f"{recorded}")
@@ -363,11 +386,12 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.benchmark and not args.image_names and not args.export:
         raise SystemExit("pass --image-names (or --benchmark / --export)")
-    if args.export and args.fused_upsample not in (None, "off"):
+    if args.export and (args.fused_attention
+                        or args.fused_upsample not in (None, "off")):
         # the artifact is the plain path (JAX refuses its Pallas flags
         # with --export too)
         raise SystemExit("--export writes the plain path; drop "
-                         "--fused-upsample")
+                         "--fused-attention/--fused-upsample")
     if args.int8 and (args.all_stages or args.save_attention):
         raise SystemExit("--int8 serves the final-stage path only; drop "
                          "--all-stages/--save-attention")

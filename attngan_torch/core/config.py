@@ -1,7 +1,8 @@
 """Configuration of serving, both training phases and the entry points.
 
 The port keeps its own copies of the JAX package's ``GanConfig``,
-``DamsmConfig``, ``RunConfig`` and ``Config`` (attngan_tpu/core/config.py)
+``DamsmConfig``, ``DataConfig``, ``RunConfig`` and ``Config``
+(attngan_tpu/core/config.py)
 instead of importing them: the port imports nothing of that package. Field
 names and model-shape defaults are the same, so a checkpoint's recorded
 config reads the same in both. Only the fields the port uses are copied:
@@ -109,6 +110,24 @@ class GanConfig:
 # the fields that fix the weights' shapes (a checkpoint records them)
 SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
                 "seq_len", "num_stages")
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The dataset and caption pipeline
+    (attngan_tpu/core/config.py::DataConfig)."""
+
+    rootdir: str = ""
+    max_images: int = 99999
+    captions_path: str = "captionsAndClassIDs.json"
+    max_seqlen: int = 8         # captions padded to this static length
+    # the HierarchicalClusterer's settings (reference pretrain_damsm.py:55-57)
+    latent_dims: int = 128
+    min_clusters: int = 5
+    max_vocab_size: int = 1000
+    cluster_method: str = "agglomerative_complete"
+    embed_batch_size: int = 32
+    flip_augment: bool = True   # a horizontally flipped copy of each image
 
 
 @dataclass(frozen=True)

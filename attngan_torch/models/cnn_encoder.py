@@ -31,7 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from attngan_torch.ops.int8 import intercept
-from attngan_torch.ops.layers import BatchNorm
+# BN_MOMENTUM: PyTorch's convention, the weight of the new statistic, 0.1:
+# 1 - the JAX package's retain factor of 0.9 (its cnn_encoder.BN_MOMENTUM)
+from attngan_torch.ops.layers import BN_MOMENTUM, BatchNorm  # noqa: F401
 
 INCEPTION_BN_EPS = 1e-3   # torchvision BasicConv2d
 

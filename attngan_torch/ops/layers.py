@@ -8,8 +8,10 @@ flax's ``dtype=`` (inputs and kernel cast, output in that dtype).
 
 BatchNorm follows attngan_tpu/ops/layers.py::TorchBatchNorm: train mode
 normalizes with the biased batch variance in fp32 and folds the unbiased
-one into the running average (momentum 0.1, eps 1e-5: PyTorch's own rule);
-eval mode folds the statistics into fp32 constants cast to x's dtype.
+one into the running average (momentum 0.1, eps 1e-5: PyTorch's own rule),
+through F.batch_norm's fused kernels on the GPU and TorchBatchNorm's
+two-pass sums on the CPU; eval mode folds the statistics into fp32
+constants cast to x's dtype.
 Under data parallelism (``parallel.mesh.sync_batch_norm_`` sets ``mesh``)
 train mode takes the statistics of the global batch, as the JAX step does
 under SPMD: the mean, then the mean squared deviation from it, each a sum
@@ -62,6 +64,11 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
                     stride=layer.stride, padding=layer.padding)
 
 
+def conv1x1(in_features: int, out_features: int,
+            bias: bool = False) -> nn.Conv2d:
+    return nn.Conv2d(in_features, out_features, 1, bias=bias)
+
+
 def conv3x3(in_features: int, out_features: int) -> nn.Conv2d:
     return nn.Conv2d(in_features, out_features, 3, padding=1, bias=False)
 
@@ -80,6 +87,33 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 def calculate_out_hw(hw: int, k: int, s: int, p: int = 0) -> int:
     """Conv output size: floor((hw + 2p - k) / s) + 1."""
     return (hw + 2 * p - k) // s + 1
+
+
+def solve_conv_params(in_hw: int, out_hw: int, max_kern: int = 4,
+                      max_stride: int = 3, max_pad: int = 3):
+    """(kernel, stride, pad) that map ``in_hw`` to exactly ``out_hw``,
+    preferring a large kernel, then a large pad, then a large stride
+    (reference utilities/layers.py:28-38 ``Layers.conv``)."""
+    valid = [
+        (k, s, p)
+        for k in range(1, max_kern + 1)
+        for s in range(1, max_stride + 1)
+        for p in range(max_pad + 1)
+        if calculate_out_hw(in_hw, k, s, p) == out_hw
+    ]
+    if not valid:
+        raise ValueError(
+            f"no (k, s, p) with k<={max_kern}, s<={max_stride}, p<={max_pad} "
+            f"maps {in_hw} -> {out_hw}")
+    return max(valid, key=lambda x: (x[0], x[2], x[1]))
+
+
+def conv_for_output(in_features: int, out_features: int, in_hw: int,
+                    out_hw: int, bias: bool = False, **limits) -> nn.Conv2d:
+    """A conv whose (k, s, p) are solved to map ``in_hw`` to ``out_hw``."""
+    k, s, p = solve_conv_params(in_hw, out_hw, **limits)
+    return nn.Conv2d(in_features, out_features, k, stride=s, padding=p,
+                     bias=bias)
 
 
 class BatchNorm(nn.Module):
@@ -105,8 +139,11 @@ class BatchNorm(nn.Module):
             k, b = self.fold()
             shape = (1, -1) + (1,) * (x.dim() - 2)
             return x * k.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
-        if self.mesh is not None or x.numel() == x.shape[1]:
-            # F.batch_norm refuses one value a channel; JAX's gives the bias
+        if self.mesh is not None or not x.is_cuda or x.numel() == x.shape[1]:
+            # JAX's two-pass form off the GPU: on the CPU F.batch_norm sums
+            # a channel in one running fp32 accumulator per thread, whose
+            # rounding grows as the threads get fewer; it also refuses one
+            # value a channel, where JAX's gives the bias
             return self._global_batch_norm(x)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, training=True,

@@ -10,6 +10,7 @@ from attngan_torch.utils.timing import (
     StepTimer,
     count_parameters,
     profile_trace,
+    timer,
 )
 from attngan_torch.utils.training import (
     noise_vector,
@@ -21,4 +22,5 @@ __all__ = [
     "StepTimer", "count_parameters", "image_grid", "moving_average",
     "noise_vector", "plot_history", "profile_trace", "save_attention_maps",
     "save_image", "save_image_grids", "scale_1_to_255", "scale_255_to_1",
+    "timer",
 ]

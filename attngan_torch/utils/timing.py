@@ -1,22 +1,92 @@
 """Step timing, a profiler window and a profiler context for the training
-loops, and a parameter count: port of attngan_tpu/utils/timing.py (the
-port imports nothing of the JAX package).
+loops, a parameter count and two fenced timers: port of
+attngan_tpu/utils/timing.py (the port imports nothing of the JAX package).
 
 ``StepTimer`` and ``count_parameters`` as they are; ``StepWindowProfiler``
 and ``profile_trace`` over torch.profiler instead of jax.profiler, writing
-Chrome traces. The JAX module's ``block``, ``timer`` and ``device_timeit``
-fence XLA's asynchronous dispatch through a remote device; they have no
-counterpart: a CUDA timing here ends in ``torch.cuda.synchronize()`` or
-reads CUDA events.
+Chrome traces. ``timer`` and ``device_timeit`` stop the clock only after
+the device has finished the work, as JAX's block on their results: CUDA
+launches return before the kernels run. The JAX module's ``block`` has no
+counterpart: ``torch.cuda.synchronize()`` is the fence.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 import os
 import time
+from typing import Any, Callable, Optional
 
 import torch
+
+
+def _tensors(tree: Any):
+    """The tensors of a result: a tensor, or lists, tuples and dicts of
+    them, nested."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _synchronize(tree: Any) -> Any:
+    """Wait until every CUDA device that holds a tensor of ``tree`` has
+    finished its queued work; returns ``tree``."""
+    for device in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(device)
+    return tree
+
+
+def timer(fn: Callable) -> Callable:
+    """Wall-clock a host function, waiting for the devices of its tensor
+    results (reference utilities/decorators.py:5-14)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        start = time.perf_counter()
+        out = _synchronize(fn(*args, **kwargs))
+        print(f"[timer] {fn.__name__}: {time.perf_counter() - start:.3f}s")
+        return out
+
+    return wrapped
+
+
+def _first_element(out: Any) -> torch.Tensor:
+    leaf = next(_tensors(out))
+    return leaf[(0,) * leaf.dim()]
+
+
+def device_timeit(fn: Callable, *args, iters: int = 20, warmup: int = 3,
+                  fold: Optional[Callable[[Any], Any]] = None) -> float:
+    """Seconds a call of ``fn(*args)``, over ``iters`` calls after
+    ``warmup`` (the kernels' build and the allocator's warm-up untimed).
+
+    Every call's output is folded into one scalar on its device (``fold``
+    maps it to a scalar tensor; by default the first element of its first
+    tensor), so the sum depends on every call. On a CUDA device the clock
+    stops after one fence, ``torch.cuda.synchronize()`` after the last
+    call, which waits for all queued work, and then one readback of the
+    sum; on the CPU the calls have ended when they return. A non-finite
+    sum raises."""
+    fold = fold or _first_element
+    for _ in range(warmup):
+        _synchronize(fn(*args))
+    acc = None
+    start = time.perf_counter()
+    for _ in range(iters):
+        value = fold(fn(*args)).float()
+        acc = value if acc is None else acc + value
+    total = float(_synchronize(acc))
+    elapsed = time.perf_counter() - start
+    if not math.isfinite(total):
+        raise RuntimeError(f"non-finite timing accumulator: {total}")
+    return elapsed / iters
 
 
 def _profiler():

@@ -3,8 +3,10 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
-1. build the Hopper kernels from attngan_torch/csrc/ (one nvcc each, at
-   once), with each kernel's registers and spills from ptxas; the streaming
+1. import every subpackage of the port through its ``__init__`` and
+   resolve each name of its ``__all__`` (neither JAX nor the JAX package
+   may load); build the Hopper kernels from attngan_torch/csrc/ (one nvcc
+   each, at once), with each kernel's registers and spills from ptxas; the streaming
    K1 kernel, the resident K2 kernel and the tensor-core DAMSM forward and
    backward must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
@@ -37,7 +39,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    0; then fp32 at batch 2 against the port's own CPU run with the same
    weights and noise;
 4. throughput: img/s over 5 windows, through K2, through K3 and with the
-   kernels off, the three paths taking their windows in turns;
+   kernels off, the three paths taking their windows in turns; then
+   ``utils.timing.device_timeit`` of the K2 path's call beside CUDA events
+   around the same timed loop (it may not read more than 2% under them:
+   its clock must stop after the work) and ``time_ms`` of the call;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -71,9 +76,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    ``--resume`` to 3 epochs (4 steps more; the restored state equal to
    its files bit for bit, then every tensor of the generator and the
    discriminators, the Adams, the generator state and the step moved,
-   the frozen encoders not), ``cli.infer`` from the GAN checkpoint (2
-   captions with ``--swap 1 --all-stages --save-attention``: 10 PNGs, each
-   read back to its shape; ``--benchmark`` at batch 64), and a GAN run of
+   the frozen encoders not), ``cli.infer`` from the GAN checkpoint (a
+   ``--df-dim`` that contradicts its config.json refused with no launch;
+   2 captions with JAX's ``--df-dim`` / ``--image-encoder`` at the
+   recorded values, ``--fused-attention``, ``--swap 1 --all-stages
+   --save-attention``: 10 PNGs, each read back to its shape; ``--benchmark`` at batch 64), and a GAN run of
    512 images (2 epochs of 32 steps, one save and grid at its end) beside
    4 windows of 16 bare steps on the state it returns. Every loss moves
    and stays finite. Each call's launch counts must be exact: K4 once
@@ -160,7 +167,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    train-mode forward, VGG features of the reconstructions and inputs,
    ``dfc_vae_loss``, the backward) at batch 16 (ms a step, peak MB,
    FLOPs), fp32 at batch 2 against the CPU (the loss, each gradient in
-   norm); ``HierarchicalClusterer`` with ``VAEEmbedder(DFCVAE(), "dfc")``
+   norm, the CPU on the card's side of every leaky ReLU input, which may
+   differ from its own only within 1e-4 of 0); ``HierarchicalClusterer`` with ``VAEEmbedder(DFCVAE(), "dfc")``
    and then ``VAEEmbedder(AutoEncoder(), "ae")`` (seeded He weights, fixed
    noise) over phase 8's 512 scene JPEGs on the card and on the CPU (the
    embeddings, one tree, the same partitions at every k; img/s);
@@ -209,6 +217,11 @@ TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 NO_SPILL = ("word_attention_stream_kernel", "upblock_resident_kernel",
             "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel")
 L2_BYTES = 50 * 2 ** 20
+# device_timeit's seconds a call may read at most this share under the
+# CUDA events around the same timed loop
+FENCE_SLACK = 0.02
+SUBPACKAGES = ("core", "data", "eval", "infer", "losses", "models", "ops",
+               "parallel", "train", "utils")
 SLEEP_CYCLES = 10 ** 8   # ~50 ms at the H100's 1.98 GHz peak SM clock
 # kernel vs plain version on the same inputs. fp32: same arithmetic in
 # another summation order (TF32 off). bf16: the outputs may differ by one
@@ -284,6 +297,15 @@ def card() -> str:
 def fail_unless(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def refused(fn) -> str:
+    """The message of the SystemExit that ``fn()`` must raise."""
+    try:
+        fn()
+    except SystemExit as e:
+        return str(e)
+    raise RuntimeError("check failed: the call was not refused")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -1338,9 +1360,26 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
 
         serve = ["--checkpoint", f"{d}/ckpt/gan",
                  "--captions-path", f"{d}/caps.json"]
+        # JAX's model flags: the recorded values serve, a contradicting
+        # --df-dim is refused before anything runs
+        with open(f"{d}/ckpt/gan/config.json") as f:
+            recorded = json.load(f)
+        jax_flags = ["--df-dim", str(recorded["df_dim"]), "--image-encoder",
+                     recorded["image_encoder"], "--fused-attention"]
+        refusal, counts, _ = probe.run(counters, lambda: refused(
+            lambda: infer.main([*serve, "--image-names", "00000",
+                                "--df-dim", str(2 * recorded["df_dim"]),
+                                "--out", f"{d}/refused"])))
+        expect("serve_contradicting_df_dim", counts, {})
+        fail_unless("contradicts the checkpoint's recorded df_dim" in refusal
+                    and not os.path.exists(f"{d}/refused"),
+                    f"a contradicting --df-dim: {refusal!r}")
+        print(json.dumps({"phase": "loops", "step": "serve_shape_flags",
+                          "served_with": jax_flags, "refused": refusal}),
+              flush=True)
         paths, counts, line = probe.run(counters, lambda: infer.main([
-            *serve, "--image-names", "00000", "00001", "--swap", "1",
-            "--all-stages", "--save-attention", "--out", f"{d}/out"]))
+            *serve, *jax_flags, "--image-names", "00000", "00001", "--swap",
+            "1", "--all-stages", "--save-attention", "--out", f"{d}/out"]))
         expect("serve_images", counts, {"word_attention": 2,
                                         "upblock_fused_eval": 2})
         want = {"64px": (64, 64, 3), "128px": (128, 128, 3),
@@ -3074,6 +3113,12 @@ LAST_STEPS = 10           # timed DFCVAE loss steps
 # VAE_GRAD_FLOOR of the whole gradient's norm
 VGG_RTOL, VAE_EMBED_RTOL = 1e-4, 1e-4
 VAE_LOSS_RTOL, VAE_GRAD_RTOL, VAE_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
+# a leaky ReLU input within rounding of 0 takes either side on two devices,
+# and the gradients upstream then differ by a whole slope there; so the
+# CPU's DFCVAE step takes the card's side of every leaky ReLU input, and an
+# input whose own side differs must lie within SIDE_ATOL of 0 (the fp32
+# activations after BN are O(1); their rounding ~1e-5)
+SIDE_ATOL = 1e-4
 VAE_EMBED_SEED = 5
 CHAIN_IMAGES = 32         # JPEGs (64 records) of the tools' CLI chain
 MFU_ARGV = ["sampler", "damsm", "gan", "--sampler-batch", "64",
@@ -3206,6 +3251,40 @@ def dfc_step(torch, model, vgg, x, eps):
     return loss
 
 
+class LeakyReluSides:
+    """Within the block, every F.leaky_relu call records the side of 0 of
+    its input (``replay`` None), or takes the sides that ``replay``
+    recorded, in call order, and counts the inputs whose own side
+    differs (``flips``: their number, and the largest |input| among them)."""
+
+    def __init__(self, torch, replay=None):
+        self.torch, self.replay = torch, replay
+        self.sides, self.flips, self.max_flip = [], 0, 0.0
+
+    def __enter__(self):
+        functional = self.torch.nn.functional
+        self.real = functional.leaky_relu
+
+        def leaky_relu(x, negative_slope=0.01, inplace=False):
+            if self.replay is None:
+                self.sides.append((x > 0).detach())
+                return self.real(x, negative_slope)
+            side = self.replay.sides[len(self.sides)].to(x.device)
+            self.sides.append(side)
+            differ = (x > 0) != side
+            if bool(differ.any()):
+                self.flips += int(differ.sum())
+                self.max_flip = max(self.max_flip,
+                                    float(x.detach()[differ].abs().max()))
+            return self.torch.where(side, x, x * negative_slope)
+
+        functional.leaky_relu = leaky_relu
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.nn.functional.leaky_relu = self.real
+
+
 def last_dfcvae(torch, vgg, vgg_cpu, card_name: str) -> None:
     """The default DFCVAE's deep-feature loss step at LAST_BATCH: finite
     loss and gradients, ms a step, peak MB, FLOPs; at LAST_CHECK_BATCH in
@@ -3243,8 +3322,14 @@ def last_dfcvae(torch, vgg, vgg_cpu, card_name: str) -> None:
     n = LAST_CHECK_BATCH
     card = model_on("cuda")
     cpu = model_on("cpu")
-    got = float(dfc_step(torch, card, vgg, xc[:n], ec[:n]))
-    want = float(dfc_step(torch, cpu, vgg_cpu, x[:n], eps[:n]))
+    with LeakyReluSides(torch) as card_sides:
+        got = float(dfc_step(torch, card, vgg, xc[:n], ec[:n]))
+    with LeakyReluSides(torch, replay=card_sides) as sides:
+        want = float(dfc_step(torch, cpu, vgg_cpu, x[:n], eps[:n]))
+    fail_unless(len(sides.sides) == len(card_sides.sides)
+                and sides.max_flip <= SIDE_ATOL,
+                f"DFCVAE leaky ReLU sides: {sides.flips} inputs off the "
+                f"card's side, up to {sides.max_flip} from 0")
     # the bias of a conv that feeds a train-mode BN (every encoder conv and
     # decoder transposed conv) has a true gradient of 0, as the BN takes
     # the mean out: its computed one is rounding, held against
@@ -3271,7 +3356,9 @@ def last_dfcvae(torch, vgg, vgg_cpu, card_name: str) -> None:
         "loss": float(loss), "ms_per_step": ms, "peak_mb": peak_mb,
         "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
         "fp32_vs_cpu": {"batch": n, "loss_card": got, "loss_cpu": want,
-                        "worst_grad_rel": worst},
+                        "worst_grad_rel": worst,
+                        "sides_flipped": sides.flips,
+                        "flipped_max_abs": sides.max_flip},
         "card": card_name}), flush=True)
 
 
@@ -3678,6 +3765,66 @@ def throughput(torch, samplers, tokens, lengths, card_name: str) -> None:
             "card": card_name}), flush=True)
 
 
+def timing_fence(torch, samplers, tokens, lengths, card_name: str) -> None:
+    """Phase 4b: ``utils.timing.device_timeit`` of one serving call at the
+    serving batch through K1 and K2, with CUDA events recorded before its
+    first timed call and after its last: its seconds a call may not read
+    below the events' by more than FENCE_SLACK (a clock stopped before the
+    work ended would). ``time_ms`` of the same call (cold L2, median)
+    beside it, for reference."""
+    from attngan_torch.utils.timing import device_timeit
+
+    sampler = samplers[True]
+    gen = torch.Generator("cuda").manual_seed(3)
+
+    def call():
+        return sampler.generate_from_tokens(tokens, lengths, generator=gen)
+
+    warmup, iters, calls, marks = 3, 20, [0], []
+
+    def marked():
+        calls[0] += 1
+        if calls[0] == warmup + 1:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        out = call()
+        if calls[0] == warmup + iters:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        return out
+
+    seconds = device_timeit(marked, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    fail_unless(calls[0] == warmup + iters and len(marks) == 2,
+                f"device_timeit made {calls[0]} calls")
+    events_s = marks[0].elapsed_time(marks[1]) / 1e3 / iters
+    print(json.dumps({"phase": "timing_fence", "path": "kernels_k2",
+                      "batch": BATCH, "device_timeit_ms": seconds * 1e3,
+                      "events_ms": events_s * 1e3,
+                      "ratio": seconds / events_s, "time_ms": time_ms(call),
+                      "card": card_name}), flush=True)
+    fail_unless(seconds >= (1 - FENCE_SLACK) * events_s,
+                f"device_timeit read {seconds * 1e3} ms a call, under the "
+                f"events' {events_s * 1e3} ms")
+
+
+def api_phase() -> None:
+    """Every subpackage through its __init__, each name of its __all__
+    resolved, and neither JAX nor the JAX package imported on the way."""
+    names = {}
+    for sub in SUBPACKAGES:
+        module = importlib.import_module(f"attngan_torch.{sub}")
+        for name in module.__all__:
+            getattr(module, name)
+        names[sub] = len(module.__all__)
+    import attngan_torch
+
+    loaded = sorted({"jax", "flax", "attngan_tpu"} & set(sys.modules))
+    fail_unless(not loaded, f"the port's imports loaded {loaded}")
+    print(json.dumps({"phase": "api", "version": attngan_torch.__version__,
+                      "names": names}), flush=True)
+
+
 def profile_calls(torch, fn, calls: int = 3) -> dict:
     """Runs ``fn`` once, then ``calls`` times under torch.profiler (CUPTI).
     Per call: wall and device-busy ms, the device's idle share, kernels
@@ -3762,6 +3909,7 @@ def main() -> int:
 
     card_name = card()
     print(card_name, flush=True)
+    api_phase()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3790,6 +3938,7 @@ def main() -> int:
     lap("kernel_checks")
     launches, samplers, tokens, lengths = serve(torch, card_name)
     throughput(torch, samplers, tokens, lengths, card_name)
+    timing_fence(torch, samplers, tokens, lengths, card_name)
     if "--profile" in sys.argv[1:]:
         profile(torch, samplers, tokens, lengths, card_name)
     del samplers

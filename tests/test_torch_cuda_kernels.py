@@ -43,11 +43,15 @@ G-step's DAMSM coupling); K1's gradient under autograd at batch 16 in bf16
 average pool's gradient for channels_last maps against the CPU's; one fp32
 GAN step at tiny dims on the card against the CPU, tolerances in its
 docstring.
+
+The timing helper: ``utils.timing.device_timeit`` stops its clock after
+the device's work, against CUDA events around the same loop.
 """
 
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.attention import word_attention
 from attngan_torch.ops.cuda_attention import word_attention_cuda
 from attngan_torch.ops.cuda_upblock import (
@@ -697,3 +701,33 @@ def test_pretrain_option_steps_on_the_card_match_the_cpu(cuda, form):
     assert bool(s_cpu) == (form == "train_mode_bn")
     for key, v in s_cpu.items():
         torch.testing.assert_close(s_gpu[key], v, rtol=1e-3, atol=1e-4)
+
+
+def test_device_timeit_is_fenced_on_the_card(cuda):
+    """utils.timing.device_timeit on calls whose device time (a sleep
+    kernel of ~0.5 ms, then an add) exceeds their launch: its seconds a
+    call may not read more than 2% under CUDA events recorded before the
+    first timed call and after the last, as chip_smoke.py holds it on the
+    serving call."""
+    from attngan_torch.utils.timing import device_timeit
+
+    x = torch.zeros(1024, device="cuda")
+    warmup, iters, calls, marks = 2, 10, [0], []
+
+    def fn():
+        calls[0] += 1
+        if calls[0] == warmup + 1:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        torch.cuda._sleep(10 ** 6)
+        out = x + calls[0]
+        if calls[0] == warmup + iters:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        return out
+
+    seconds = device_timeit(fn, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    assert calls[0] == warmup + iters and len(marks) == 2
+    events_s = marks[0].elapsed_time(marks[1]) / 1e3 / iters
+    assert seconds >= 0.98 * events_s > 0, (seconds, events_s)

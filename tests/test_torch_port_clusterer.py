@@ -40,6 +40,7 @@ from attngan_tpu.data import synthetic as jax_synthetic
 from attngan_tpu.data import umap_native as jax_umap
 from attngan_tpu.models.resnet import ImageEmbedder as JaxImageEmbedder
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch import convert
 from attngan_torch.data import clusterer, synthetic, umap_native
 from attngan_torch.models.resnet import ImageEmbedder, ResNet18, init_resnet18

@@ -21,6 +21,7 @@ from flax import traverse_util
 
 import attngan_tpu.models.cnn_encoder as jcnn
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import block_state_dict
 from attngan_torch.models import cnn_encoder as tcnn
 

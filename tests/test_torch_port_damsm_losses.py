@@ -15,6 +15,7 @@ import torch
 
 from attngan_tpu.losses import damsm as jax_damsm
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.losses import damsm
 
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -22,6 +22,7 @@ import torch
 import attngan_tpu.ops.pallas_damsm as pd
 from attngan_tpu.ops.attention import damsm_attention as jax_damsm_attention
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.attention import damsm_attention
 from attngan_torch.ops.cuda_damsm import (
     DamsmSimilarity,

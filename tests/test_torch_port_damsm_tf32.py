@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.damsm_similarity import (
     similarity_bwd_plain,
     similarity_plain,

@@ -23,6 +23,7 @@ from flax import traverse_util
 from attngan_tpu.core.config import DamsmConfig as JaxDamsmConfig
 from attngan_tpu.train.damsm_trainer import DamsmTrainer as JaxDamsmTrainer
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import convert_damsm_flat, load_damsm_flat
 from attngan_torch.core.config import DamsmConfig
 from attngan_torch.train.damsm_trainer import DamsmTrainer

@@ -27,6 +27,7 @@ from attngan_tpu.data.captions import CaptionHandler as JaxCaptionHandler
 from attngan_tpu.data.vocab import Vocab as JaxVocab
 from attngan_tpu.utils import imaging as jax_imaging
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.data import dataset, synthetic
 from attngan_torch.data.captions import CaptionHandler
 from attngan_torch.data.prefetch import prefetch

@@ -26,6 +26,7 @@ from attngan_tpu.losses import gan as jax_gan
 from attngan_tpu.models.discriminators import Discriminator as JaxDiscriminator
 from attngan_tpu.ops import layers as jax_layers
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import _disc_key, _layout
 from attngan_torch.losses import gan
 from attngan_torch.models.discriminators import Discriminator

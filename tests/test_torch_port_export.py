@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.cli import infer
 from attngan_torch.core.config import GanConfig
 from attngan_torch.data.synthetic import make_synthetic_dataset

@@ -37,6 +37,7 @@ from attngan_tpu.train.checkpoint import save_checkpoint as jax_save
 from attngan_tpu.train.damsm_trainer import DamsmTrainer as JaxDamsmTrainer
 from attngan_tpu.train.gan_trainer import GanTrainer as JaxGanTrainer
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.cli import infer
 from attngan_torch.cli.train import load_damsm_encoders
 from attngan_torch.convert import load_damsm_flat, load_gan_flat

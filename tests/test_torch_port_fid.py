@@ -33,6 +33,7 @@ from flax import traverse_util
 
 from attngan_tpu.eval import fid as jax_fid
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import block_state_dict
 from attngan_torch.core.config import GanConfig
 from attngan_torch.eval.fid import (

@@ -47,6 +47,7 @@ from attngan_tpu.core.config import GanConfig as JaxGanConfig
 from attngan_tpu.data.dataset import word_mask as jax_word_mask
 from attngan_tpu.train.gan_trainer import GanTrainer as JaxGanTrainer
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import convert_gan_flat, load_gan_flat
 from attngan_torch.core.config import GanConfig
 from attngan_torch.train.gan_trainer import GanTrainer
@@ -94,13 +95,14 @@ def flatten_gan_state(state) -> dict:
 def _jax_draws(state, cfg):
     """The noise, eps and real labels _gan_step draws from state.key."""
     _, k_noise, k_reparam, k_label = jax.random.split(state.key, 4)
+    b = cfg.batch_size
     return {
         "noise": torch.from_numpy(np.array(
-            jax.random.normal(k_noise, (B, cfg.z_dim)))),
+            jax.random.normal(k_noise, (b, cfg.z_dim)))),
         "eps": torch.from_numpy(np.array(
-            jax.random.normal(k_reparam, (B, cfg.cond_dim), jnp.float32))),
+            jax.random.normal(k_reparam, (b, cfg.cond_dim), jnp.float32))),
         "real_labels": {str(res): torch.from_numpy(np.array(
-            jax.random.uniform(jax.random.fold_in(k_label, i), (B,),
+            jax.random.uniform(jax.random.fold_in(k_label, i), (b,),
                                minval=cfg.label_smooth, maxval=1.0)))
             for i, res in enumerate(cfg.resolutions)}}
 
@@ -134,6 +136,23 @@ def standard_two_stages():
     # one JAX compile for both: the loss variant does not touch the
     # coupling, which 2 stages leave out
     return _jax_run(num_stages=2, loss_variant="standard")
+
+
+@pytest.fixture(autouse=True)
+def native_cpu_convolutions():
+    """The port's steps on PyTorch's native CPU convolutions. oneDNN's,
+    PyTorch's default on the CPU, sums a conv's weight gradient over the
+    batch and the 256^2 pixels in an order whose rounding grows as the
+    threads get fewer: with one thread (an xdist worker's share of 8
+    cores) the first step's ``gen3.up.conv.weight`` moments lie 1.2e-4
+    from JAX's, against ATOL = 1e-4. The native convolutions sum in an
+    order that does not depend on the thread count. The tolerances stay."""
+    enabled = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = enabled
 
 
 def _port(flat, **cfg):

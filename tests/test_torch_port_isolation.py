@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.core.runtime import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,7 @@ from attngan_tpu.ops.pallas_attention import word_attention_pallas
 from attngan_tpu.ops.pallas_upblock import upblock_fused_eval as jax_upblock
 from attngan_tpu.ops.pallas_upblock_packed import upblock_pallas_packed
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.attention import word_attention
 from attngan_torch.ops.cuda_attention import WordAttention, word_attention_cuda
 from attngan_torch.ops.cuda_upblock import (

@@ -15,6 +15,7 @@ from attngan_tpu.ops.layers import UpBlock as JaxUpBlock
 from attngan_tpu.ops.layers import glu as jax_glu
 from attngan_tpu.ops.layers import upsample_nearest_2x as jax_upsample
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.layers import ResBlock, UpBlock, glu, upsample_nearest_2x
 
 ATOL = 1e-5

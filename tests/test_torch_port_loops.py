@@ -34,6 +34,7 @@ import torch
 
 from attngan_tpu.train.loops import _skip_batch as jax_skip_batch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.cli import infer, pretrain, train
 from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig, replace
 from attngan_torch.data.synthetic import make_synthetic_dataset
@@ -291,16 +292,29 @@ def test_cli_chain_needs_no_pil_matplotlib_or_sklearn(tmp_path):
                                 f"{name}_{suffix}.png")).shape == shape
 
 
-def test_infer_refuses_a_contradicting_shape_flag(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def gan_checkpoint(tmp_path_factory):
+    """(the GAN checkpoint dir of a 1-epoch cli.train run, its captions)."""
+    tmp_path = tmp_path_factory.mktemp("gan_checkpoint")
     run_cfg = _run_cfg(tmp_path)
     ds = _dataset(256)
     loops.run_gan_training(replace(GAN, epochs=1), run_cfg, ds, device="cpu")
     caps = tmp_path / "caps.json"
     ds.save_captions_and_class_ids(str(caps))
-    ckpt = os.path.join(run_cfg.checkpoint_dir, "gan")
-    args = ["--checkpoint", ckpt, "--captions-path", str(caps),
+    return os.path.join(run_cfg.checkpoint_dir, "gan"), caps
+
+
+def _infer_args(gan_checkpoint, tmp_path):
+    ckpt, caps = gan_checkpoint
+    return ["--checkpoint", ckpt, "--captions-path", str(caps),
             "--device", "cpu", "--image-names", "00001",
             "--out", str(tmp_path / "out")]
+
+
+def test_infer_refuses_a_contradicting_shape_flag(gan_checkpoint, tmp_path,
+                                                  capsys):
+    ckpt, caps = gan_checkpoint
+    args = _infer_args(gan_checkpoint, tmp_path)
     with pytest.raises(SystemExit, match="--gf-dim 8 contradicts .*gf_dim=4"):
         infer.main([*args, "--gf-dim", "8"])
     # a step_* dir serves too, and a flag that agrees is accepted
@@ -314,6 +328,28 @@ def test_infer_refuses_a_contradicting_shape_flag(tmp_path, capsys):
                                  "x/00001.jpg": [["k2c0", "k16c9"], 0]}))
     with pytest.raises(SystemExit, match="vocabulary of 6 words"):
         infer.main([*args, "--captions-path", str(other)])
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    (["--df-dim", "4", "--image-encoder", "tiny", "--fused-attention"], None),
+    (["--df-dim", "8"], "--df-dim 8 contradicts .*df_dim=4"),
+    (["--image-encoder", "inception_v3"],
+     "--image-encoder inception_v3 contradicts .*image_encoder=tiny"),
+    (["--fused-attention", "--export", "x.zip"], "drop --fused-attention"),
+], ids=["agree", "df_dim", "image_encoder", "fused_attention_export"])
+def test_infer_takes_the_jax_model_flags(gan_checkpoint, tmp_path, capsys,
+                                         flags, refusal):
+    """JAX's --df-dim, --image-encoder and --fused-attention parse; the
+    first two must agree with the checkpoint's config.json, and
+    --fused-attention is refused with --export, as JAX refuses them."""
+    args = _infer_args(gan_checkpoint, tmp_path)
+    if refusal is not None:
+        with pytest.raises(SystemExit, match=refusal):
+            infer.main([*args, *flags])
+        assert not (tmp_path / "out").exists()
+        return
+    paths = infer.main([*args, *flags])
+    assert read_png(paths[0]).shape == (256, 256, 3)
 
 
 @pytest.mark.parametrize("present", [True, False],

@@ -22,6 +22,7 @@ from torch.utils._python_dispatch import _disable_current_modes
 
 from attngan_tpu.utils import mfu as jax_mfu
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.core.config import GanConfig
 from attngan_torch.infer.sampler import InferState, Sampler
 from attngan_torch.tools.mfu_report import plain

@@ -24,6 +24,7 @@ from attngan_tpu.infer.sampler import denormalize as jax_denormalize
 from attngan_tpu.models.generator import Generator as JaxGenerator
 from attngan_tpu.models.rnn_encoder import BiLSTMEncoder as JaxBiLSTM
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.convert import convert_flat, load_flat
 from attngan_torch.core.config import GanConfig
 from attngan_torch.infer.sampler import (

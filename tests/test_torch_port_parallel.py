@@ -52,6 +52,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from torch_parallel_ranks import JOBS, run_ranks
 
 from attngan_tpu.core.config import DamsmConfig as JaxDamsmConfig

@@ -21,6 +21,7 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.cli import infer, pretrain, train
 from attngan_torch.train.checkpoint import latest_checkpoint, load_part
 from test_torch_port_parallel import (

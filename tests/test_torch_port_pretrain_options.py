@@ -48,6 +48,7 @@ from attngan_tpu.train.damsm_trainer import DamsmTrainer as JaxDamsmTrainer
 from attngan_tpu.train.loops import _group_superbatches as jax_group
 from attngan_tpu.train.loops import run_damsm_training as jax_run_damsm
 from test_torch_port_damsm_trainer import flatten_damsm_state
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from tools import convert_torch_weights
 from torch_oracles import TInceptionTrunk, randomize_
 

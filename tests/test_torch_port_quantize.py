@@ -42,6 +42,7 @@ from flax import linen as fnn
 from flax import traverse_util
 from test_torch_port_damsm_trainer import flatten_damsm_state
 from test_torch_port_models import _draw, _flat
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from torch_parallel_ranks import int8_job, run_ranks
 
 from attngan_tpu.core.config import DamsmConfig as JaxDamsmConfig

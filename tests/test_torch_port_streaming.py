@@ -26,6 +26,7 @@ from attngan_tpu.data import captioned as jax_captioned
 from attngan_tpu.data import native_loader as jax_native_loader
 from attngan_tpu.data import streaming as jax_streaming
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.data import captioned, native_loader, streaming
 from attngan_torch.data.clusterer import HierarchicalClusterer
 from attngan_torch.data.dataset import Dataset, decode_image

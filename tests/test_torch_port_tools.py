@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.eval import fid as fid_module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.cuda_upblock import (
     RESIDENT_DIMS,
     UNIT_COLS,

@@ -39,6 +39,7 @@ from attngan_tpu.models.vgg import VGG19BNFeatures as JaxVGG
 from attngan_tpu.ops import layers as jax_layers
 from attngan_tpu.utils import training as jax_training
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch import convert
 from attngan_torch.data import clusterer, synthetic
 from attngan_torch.models import vae

@@ -27,6 +27,7 @@ from attngan_tpu.models.vgg import (
 )
 from tests.torch_oracles import randomize_, t_vgg19_bn_features
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch import convert
 from attngan_torch.models.vgg import (
     DEFAULT_FEATURE_LAYERS,

@@ -18,6 +18,7 @@ import torch
 
 from attngan_tpu.ops.pallas_attention import word_attention_pallas
 
+import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.attention import word_attention
 from attngan_torch.ops.cuda_attention import (
     MAX_STAGES,
