@@ -56,7 +56,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import time
 
 # bench.py's vocabulary size, for a benchmark with neither a checkpoint nor
@@ -275,21 +274,25 @@ def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
 
     imgs = call()
     sync()                                 # build + warm-up, untimed
-    rates = []
+    rates, seconds = [], 0.0
     for _ in range(windows):
         start = time.perf_counter()
         for _ in range(iters):
             imgs = call()
         sync()
-        rates.append(args.batch_size * iters / (time.perf_counter() - start))
+        elapsed = time.perf_counter() - start
+        seconds += elapsed
+        rates.append(args.batch_size * iters / elapsed)
     if not bool(torch.isfinite(imgs).all()):
         raise RuntimeError("non-finite images in the benchmark")
-    median = statistics.median(rates)
+    # every window's images over every window's seconds: a stall in one
+    # window counts, as it would not in a median of the windows' rates
+    value = args.batch_size * iters * windows / seconds
     device = (torch.cuda.get_device_name(sampler.device)
               if sampler.device.type == "cuda" else "cpu")
-    return {"metric": "gen_images_per_sec", "value": median, "unit": "img/s",
+    return {"metric": "gen_images_per_sec", "value": value, "unit": "img/s",
             "windows": rates,
-            "spread_pct": 100.0 * (max(rates) - min(rates)) / median,
+            "spread_pct": 100.0 * (max(rates) - min(rates)) / value,
             "batch_size": args.batch_size, "device": device,
             "devices": 1 if sampler.mesh is None else sampler.mesh.size,
             "compute_dtype": cfg.compute_dtype,

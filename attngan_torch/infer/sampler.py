@@ -24,6 +24,7 @@ from attngan_torch.data.dataset import word_mask
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
 from attngan_torch.parallel.mesh import Mesh, all_gather_rows, shard_rows
+from attngan_torch.utils.timing import span
 
 
 def denormalize(images: torch.Tensor) -> torch.Tensor:
@@ -83,29 +84,31 @@ class Sampler:
         On a mesh ``tokens``, ``lengths`` and the given ``noise`` / ``eps``
         are the whole batch's; the outputs are too, or this rank's rows
         only where ``gather`` is False."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        lengths = torch.as_tensor(lengths, device=self.device)
-        n = tokens.shape[0]
-        if noise is None:
-            noise = torch.randn((n, self.cfg.z_dim), generator=generator,
-                                device=self.device)
-        if eps is None and self.mesh is not None:   # CondAugment's draw
-            eps = torch.randn((n, self.cfg.cond_dim), generator=generator,
-                              device=self.device)
-        tokens, lengths, noise = (shard_rows(t, self.mesh)
-                                  for t in (tokens, lengths, noise))
-        word_embs, sent_embs = self.state.rnn(tokens, lengths)
-        mask = word_mask(lengths, tokens.shape[1])
-        fakes, attns, _, _ = self.state.generator(
-            noise.to(self.device), sent_embs, word_embs, mask,
-            eps=None if eps is None else shard_rows(eps.to(self.device),
-                                                    self.mesh),
-            generator=generator)
-        images = [denormalize(f) for f in fakes]
-        if gather and self.mesh is not None:
-            images = [all_gather_rows(x, self.mesh) for x in images]
-            attns = [all_gather_rows(a, self.mesh) for a in attns]
-        return images, attns
+        with span("attngan.serve"):
+            tokens = torch.as_tensor(tokens, device=self.device)
+            lengths = torch.as_tensor(lengths, device=self.device)
+            n = tokens.shape[0]
+            if noise is None:
+                noise = torch.randn((n, self.cfg.z_dim), generator=generator,
+                                    device=self.device)
+            if eps is None and self.mesh is not None:   # CondAugment's draw
+                eps = torch.randn((n, self.cfg.cond_dim), generator=generator,
+                                  device=self.device)
+            tokens, lengths, noise = (shard_rows(t, self.mesh)
+                                      for t in (tokens, lengths, noise))
+            with span("attngan.text_encoder"):
+                word_embs, sent_embs = self.state.rnn(tokens, lengths)
+                mask = word_mask(lengths, tokens.shape[1])
+            fakes, attns, _, _ = self.state.generator(
+                noise.to(self.device), sent_embs, word_embs, mask,
+                eps=None if eps is None else shard_rows(eps.to(self.device),
+                                                        self.mesh),
+                generator=generator)
+            images = [denormalize(f) for f in fakes]
+            if gather and self.mesh is not None:
+                images = [all_gather_rows(x, self.mesh) for x in images]
+                attns = [all_gather_rows(a, self.mesh) for a in attns]
+            return images, attns
 
     def generate_from_tokens(self, tokens, lengths, noise=None, eps=None,
                              generator=None, gather: bool = True

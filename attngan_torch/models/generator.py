@@ -35,6 +35,7 @@ from attngan_torch.ops.layers import (
     conv3x3,
     glu,
 )
+from attngan_torch.utils.timing import span
 
 
 class CondAugment(nn.Module):
@@ -170,12 +171,15 @@ class Generator(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                            torch.Tensor, torch.Tensor]:
-        condition, mu, logvar = self.ca(sent_emb, eps, generator)
-        x = self.gen1(noise.float(), condition)
-        fakes = [self.img_out1(x)]
-        attns = []
-        for stage in range(2, self.num_stages + 1):
-            x, attn = getattr(self, f"gen{stage}")(x, word_embs, mask)
-            fakes.append(getattr(self, f"img_out{stage}")(x))
-            attns.append(attn)
+        with span("attngan.generator"):
+            condition, mu, logvar = self.ca(sent_emb, eps, generator)
+            with span("attngan.stage1"):
+                x = self.gen1(noise.float(), condition)
+                fakes = [self.img_out1(x)]
+            attns = []
+            for stage in range(2, self.num_stages + 1):
+                with span(f"attngan.stage{stage}"):
+                    x, attn = getattr(self, f"gen{stage}")(x, word_embs, mask)
+                    fakes.append(getattr(self, f"img_out{stage}")(x))
+                attns.append(attn)
         return fakes, attns, mu, logvar

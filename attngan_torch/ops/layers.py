@@ -37,6 +37,8 @@ from attngan_torch.ops.cuda_upblock_packed import (
     CO as PACKED_CO,
     upblock_fused_eval_packed_cuda,
 )
+from attngan_torch.utils.timing import span
+from attngan_torch.utils.training import calculate_out_hw
 
 BN_MOMENTUM = 0.1   # PyTorch's (new-stat weight); flax's 0.9 retain factor
 BN_EPS = 1e-5
@@ -82,11 +84,6 @@ def conv4x4_down(in_features: int, out_features: int,
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.2)
-
-
-def calculate_out_hw(hw: int, k: int, s: int, p: int = 0) -> int:
-    """Conv output size: floor((hw + 2p - k) / s) + 1."""
-    return (hw + 2 * p - k) // s + 1
 
 
 def solve_conv_params(in_hw: int, out_hw: int, max_kern: int = 4,
@@ -195,22 +192,24 @@ class UpBlock(nn.Module):
         self.bn = BatchNorm(2 * out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ci, h, w = x.shape[1:]
-        mode = self.fused_inference
-        packed_ok = (ci == PACKED_CI and self.out_features == PACKED_CO
-                     and h % 2 == 0 and w % 2 == 0)
-        if mode == "packed64" and not (packed_ok and h == 64):
-            mode = False
-        if mode == "packed" and not packed_ok:
-            mode = False
-        if mode and not self.training and h >= 64:
-            k, b = self.bn.fold()
-            nhwc = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
-            fn = (upblock_fused_eval_packed_cuda
-                  if mode in ("packed", "packed64") else upblock_fused_eval_cuda)
-            return fn(nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
-        x = conv(upsample_nearest_2x(x), self.conv, self.dtype)
-        return glu(self.bn(x))
+        with span("attngan.upblock"):
+            ci, h, w = x.shape[1:]
+            mode = self.fused_inference
+            packed_ok = (ci == PACKED_CI and self.out_features == PACKED_CO
+                         and h % 2 == 0 and w % 2 == 0)
+            if mode == "packed64" and not (packed_ok and h == 64):
+                mode = False
+            if mode == "packed" and not packed_ok:
+                mode = False
+            if mode and not self.training and h >= 64:
+                k, b = self.bn.fold()
+                nhwc = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
+                fn = (upblock_fused_eval_packed_cuda
+                      if mode in ("packed", "packed64")
+                      else upblock_fused_eval_cuda)
+                return fn(nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
+            x = conv(upsample_nearest_2x(x), self.conv, self.dtype)
+            return glu(self.bn(x))
 
 
 class ResBlock(nn.Module):

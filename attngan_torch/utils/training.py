@@ -12,10 +12,13 @@ from typing import Optional
 
 import torch
 
-from attngan_torch.ops.layers import calculate_out_hw
-
 __all__ = ["calculate_out_hw", "noise_vector", "scale_1_to_255",
            "scale_255_to_1"]
+
+
+def calculate_out_hw(hw: int, k: int, s: int, p: int = 0) -> int:
+    """Conv output size: floor((hw + 2p - k) / s) + 1."""
+    return (hw + 2 * p - k) // s + 1
 
 
 def scale_255_to_1(images: torch.Tensor) -> torch.Tensor:

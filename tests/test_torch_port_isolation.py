@@ -155,6 +155,34 @@ def test_cli_benchmark_on_cpu(capsys):
     assert len(line["windows"]) == 5 and line["value"] > 0
 
 
+def test_cli_benchmark_value_is_all_images_over_all_seconds(monkeypatch,
+                                                            capsys):
+    """A clock that stalls the third window 10 s: the value is the images
+    of every window over the seconds of every window, which the stall
+    moves and a median of the windows' rates would not."""
+    from attngan_torch.cli import infer
+
+    class Clock:
+        now, reads = 0.0, 0
+
+        def perf_counter(self):
+            self.reads += 1
+            self.now += 10.0 if self.reads == 6 else 0.5
+            return self.now
+
+    monkeypatch.setattr(infer, "time", Clock())
+    infer.main(["--benchmark", "--device", "cpu", "--batch-size", "2",
+                "--captions-path", "/nonexistent.json", *TINY])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    images = 2 * infer.BENCH_ITERS
+    seconds = [images / rate for rate in line["windows"]]
+    assert sorted(seconds) == pytest.approx([0.5] * 4 + [10.0])
+    assert line["value"] == pytest.approx(5 * images / sum(seconds))
+    assert line["value"] < sorted(line["windows"])[1]
+    assert line["spread_pct"] == pytest.approx(
+        100 * (max(line["windows"]) - min(line["windows"])) / line["value"])
+
+
 def test_cli_writes_images_from_a_checkpoint(tmp_path, capsys):
     from attngan_torch.cli.infer import main
     from attngan_torch.core.config import GanConfig
