@@ -9,11 +9,27 @@ Data parallel (``Sampler(mesh=)``, JAX's ``Sampler(mesh=)``): every rank
 is given the whole batch's tokens, draws the whole batch's noise and eps,
 samples its own rows, and the images are gathered (``gather``) so that
 rank 0 can write them.
+
+On one CUDA device the eval generator runs as a CUDA graph, one per input
+shape (``Sampler.replayable`` says when): a shape's first call runs
+eagerly, which builds the kernels and warms cuDNN; its second captures
+``Generator.forward`` on static input buffers, and from then on a call
+copies its inputs into them and replays the graph, so that the generator
+costs the host one launch instead of some 300. The graphs share one memory
+pool and replay in turn on the caller's stream; each call's outputs are
+copied out of the pool (``denormalize``, the attention maps cloned)
+before the next replay can overwrite them. The weights are read where they
+lie: ``load_state_dict`` in place reaches the next replay, and a generator
+moved elsewhere (``.to``) drops every graph. The kernel wrappers' launch
+counters count what the host launches: an eager call's kernels and a
+capture's, none of a replay's (``replays`` counts those). A shape whose
+capture raises runs eagerly from then on, with one warning.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -23,6 +39,7 @@ from attngan_torch.core.runtime import resolve_device
 from attngan_torch.data.dataset import word_mask
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
+from attngan_torch.ops import int8
 from attngan_torch.parallel.mesh import Mesh, all_gather_rows, shard_rows
 from attngan_torch.utils.timing import span
 
@@ -62,9 +79,26 @@ def load_infer_state(path: str, cfg: Optional[GanConfig] = None,
     return state.to(resolve_device(device))
 
 
+class _Graph(NamedTuple):
+    """A captured generator call: the static buffers it reads (noise,
+    sent_embs, word_embs, mask, eps) and the outputs it writes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]
+    fakes: List[torch.Tensor]
+    attns: List[torch.Tensor]
+
+
+_WARM = "warm"      # a shape seen once, eagerly: the next call captures
+_EAGER = "eager"    # a shape whose capture raised
+
+
 class Sampler:
     """Serves an InferState on one device (the GPU unless asked otherwise),
-    or this rank's rows of each batch on a mesh of ranks."""
+    or this rank's rows of each batch on a mesh of ranks.
+
+    ``captures``, ``replays`` and ``eager_calls`` count the generator's
+    calls by path."""
 
     def __init__(self, state: InferState,
                  device: str | torch.device | None = None,
@@ -73,6 +107,76 @@ class Sampler:
         self.state = state.to(self.device).eval()
         self.cfg = state.cfg
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._graphs: Dict[tuple, Union[_Graph, str]] = {}
+        self._pool = None
+        self._ends: Tuple[torch.Tensor, ...] = ()   # first, last parameter
+        self._end_ptrs: Tuple[int, ...] = ()
+        self.captures = self.replays = self.eager_calls = 0
+
+    def replayable(self) -> bool:
+        """Whether the generator may run as a CUDA graph: on one CUDA
+        device, in eval mode, with grad off and no int8 interceptor."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and not self.state.generator.training
+                and not torch.is_grad_enabled() and not int8.active())
+
+    def _generator(self, *inputs: torch.Tensor
+                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """(fakes, attns) of the generator on (noise, sent_embs, word_embs,
+        mask, eps): replayed, captured, or eager."""
+        if not self.replayable():
+            return self._eager(inputs)
+        self._drop_moved_graphs()
+        key = tuple((t.shape, t.dtype) for t in inputs)
+        entry = self._graphs.get(key)
+        if entry is None:
+            self._graphs[key] = _WARM
+            return self._eager(inputs)
+        if entry is _WARM:
+            entry = self._graphs[key] = self._capture(key, inputs)
+        if entry is _EAGER:
+            return self._eager(inputs)
+        with span("attngan.generator"):
+            for static, t in zip(entry.inputs, inputs):
+                static.copy_(t)
+            with span("attngan.replay"):
+                entry.graph.replay()
+            self.replays += 1
+            return entry.fakes, [a.clone() for a in entry.attns]
+
+    def _eager(self, inputs):
+        self.eager_calls += 1
+        fakes, attns, _, _ = self.state.generator(*inputs[:4], eps=inputs[4])
+        return fakes, attns
+
+    def _capture(self, key, inputs) -> Union[_Graph, str]:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        static = tuple(t.clone() for t in inputs)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                fakes, attns, _, _ = self.state.generator(*static[:4],
+                                                          eps=static[4])
+        except RuntimeError as e:
+            warnings.warn(f"no CUDA graph of the generator at {key}, which "
+                          f"runs eagerly from now on: {e}")
+            return _EAGER
+        self.captures += 1
+        return _Graph(graph, static, fakes, attns)
+
+    def _drop_moved_graphs(self) -> None:
+        """Forget every graph once the generator has moved (``.to``,
+        ``.cuda``): the graphs read the old addresses. Reads the first and
+        the last parameter's, which a move of the module changes; a
+        ``.data =`` on one weight between them goes unseen."""
+        if (self._ends and tuple(t.data_ptr() for t in self._ends)
+                == self._end_ptrs):
+            return
+        self._graphs.clear()
+        params = list(self.state.generator.parameters())
+        self._ends = (params[0], params[-1])
+        self._end_ptrs = tuple(t.data_ptr() for t in self._ends)
 
     @torch.no_grad()
     def generate_stages(
@@ -91,19 +195,18 @@ class Sampler:
             if noise is None:
                 noise = torch.randn((n, self.cfg.z_dim), generator=generator,
                                     device=self.device)
-            if eps is None and self.mesh is not None:   # CondAugment's draw
+            if eps is None:     # the draw CondAugment would make next
                 eps = torch.randn((n, self.cfg.cond_dim), generator=generator,
                                   device=self.device)
-            tokens, lengths, noise = (shard_rows(t, self.mesh)
-                                      for t in (tokens, lengths, noise))
+            tokens, lengths, noise, eps = (shard_rows(t, self.mesh)
+                                           for t in (tokens, lengths, noise,
+                                                     eps))
             with span("attngan.text_encoder"):
                 word_embs, sent_embs = self.state.rnn(tokens, lengths)
                 mask = word_mask(lengths, tokens.shape[1])
-            fakes, attns, _, _ = self.state.generator(
+            fakes, attns = self._generator(
                 noise.to(self.device), sent_embs, word_embs, mask,
-                eps=None if eps is None else shard_rows(eps.to(self.device),
-                                                        self.mesh),
-                generator=generator)
+                eps.to(self.device))
             images = [denormalize(f) for f in fakes]
             if gather and self.mesh is not None:
                 images = [all_gather_rows(x, self.mesh) for x in images]

@@ -48,6 +48,11 @@ def intercepting(interceptor: Callable):
         _interceptor = previous
 
 
+def active() -> bool:
+    """Whether an interceptor is in force."""
+    return _interceptor is not None
+
+
 def intercept(layer: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
     """The interceptor's output for ``layer``'s site on ``x``, or None:
     the site then runs its float path."""

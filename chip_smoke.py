@@ -33,11 +33,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
    batch 64 in bf16, once through K2 and once through K3, with the launch
-   counters reset just before each call and read just after: exactly 2 K1
-   launches and 2 of the path's UpBlock kernel, both in the resident form,
-   and every other counter (the other path's UpBlock kernel's included) at
-   0; then fp32 at batch 2 against the port's own CPU run with the same
-   weights and noise;
+   counters reset just before the shape's second call (the CUDA graph's
+   capture and first replay) and read just after: exactly 2 K1 launches
+   and 2 of the path's UpBlock kernel, both in the resident form, and
+   every other counter (the other path's UpBlock kernel's included) at 0;
+   the sampler's counts 1 eager call, 1 capture, 1 replay; a third call,
+   a replay, launching K1 twice and the UpBlock kernel twice by
+   torch.profiler's count; then fp32 at batch 2, three calls (eager,
+   captured, replayed), the first and the third against the port's own
+   CPU run with the same weights and noise;
 4. throughput: img/s over 5 windows, through K2, through K3 and with the
    kernels off, the three paths taking their windows in turns; then
    ``utils.timing.device_timeit`` of the K2 path's call beside CUDA events
@@ -80,7 +84,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    ``--df-dim`` that contradicts its config.json refused with no launch;
    2 captions with JAX's ``--df-dim`` / ``--image-encoder`` at the
    recorded values, ``--fused-attention``, ``--swap 1 --all-stages
-   --save-attention``: 10 PNGs, each read back to its shape; ``--benchmark`` at batch 64), and a GAN run of
+   --save-attention``: 10 PNGs, each read back to its shape; ``--benchmark`` at batch 64, whose
+   host launches on 2 of its 21 calls, the rest replaying), and a GAN run of
    512 images (2 epochs of 32 steps, one save and grid at its end) beside
    4 windows of 16 bare steps on the state it returns. Every loss moves
    and stays finite. Each call's launch counts must be exact: K4 once
@@ -174,7 +179,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    embeddings, one tree, the same partitions at every k; img/s);
    ``attngan_torch.tools.mfu_report``'s three paths (the sampler at 64,
    the pretrain step at 64, the GAN step at 16: 0 < mfu <= 1.05, the
-   launches exactly the calls'); then every other tool once at a small
+   host's launches exactly the calls', the sampler's replays launching
+   none); then every other tool once at a small
    size, its exit code and JSON keys: ``collision_check``, ``fid_curve``
    and ``int8_fid_run`` on a full-width CLI chain of its own (32 JPEGs,
    vocabulary capped at 32, so that classes collide), ``attnmaps_bench``,
@@ -1402,8 +1408,11 @@ def loops_phase(torch, card_name: str, bare_gan_rate: float) -> dict:
         bench, counts, line = probe.run(counters, lambda: infer.main([
             *serve, "--benchmark", "--batch-size", "64"]))
         calls = 1 + infer.BENCH_WINDOWS * infer.BENCH_ITERS
-        expect("serve_benchmark", counts, {"word_attention": 2 * calls,
-                                           "upblock_fused_eval": 2 * calls})
+        # the host launches on the first call (eager) and the second (the
+        # graph's capture); the others replay it
+        host = 2 * min(calls, 2)
+        expect("serve_benchmark", counts, {"word_attention": host,
+                                           "upblock_fused_eval": host})
         print(json.dumps({"phase": "loops", "step": "serve_benchmark",
                           "calls": calls, "img_per_s": bench["value"],
                           "spread_pct": bench["spread_pct"], **line,
@@ -2419,8 +2428,9 @@ def data_parallel_phase(torch, card_name: str) -> dict:
     16 for 2 epochs: 2 steps, the sharded coupling, rank 0's sample grids)
     and
     cli.infer --benchmark at batch 64 from that; and the same chain in
-    this process. Each rank's launches exact; the ranks' trained states
-    equal bit for bit; losses finite and moving, the first step's within
+    this process. Each rank's launches exact (one process's sampler
+    launches from the host on its eager and its captured call only); the
+    ranks' trained states equal bit for bit; losses finite and moving, the first step's within
     STEP_RTOL of the one-process chain's; the states against that chain's
     in norm per tensor (second moments at their gradient's scale): the
     pretrain state within STEP_RTOL, the GAN's moments, BN statistics and
@@ -2524,8 +2534,10 @@ def data_parallel_phase(torch, card_name: str) -> dict:
                       "upblock_fused_eval": grids,
                       "damsm_similarity": DP_STEPS,
                       "damsm_similarity_bwd_square": 2 * DP_STEPS},
-            "infer": {"word_attention": 2 * 21,
-                      "upblock_fused_eval": 2 * 21}}
+            # one device: the first call eager, the second captured, the
+            # other 19 replayed, launching nothing from the host
+            "infer": {"word_attention": 2 * 2,
+                      "upblock_fused_eval": 2 * 2}}
         two, one = chain_args(f"{d}/ranks"), chain_args(f"{d}/one")
         clis = {"pretrain": pretrain, "train": train, "infer": infer}
         for job in ("pretrain", "train", "infer"):
@@ -3468,15 +3480,17 @@ def run_tool(torch, counters, name: str, argv: list) -> dict:
 def last_mfu(torch, counters, card_name: str) -> dict:
     """attngan_torch.tools.mfu_report on its three paths (the sampler at
     batch 64, the pretrain step at 64, the GAN step at 16): 0 < mfu <=
-    MFU_MAX each; the launches exactly the calls' (K1 2, K2 2 a sampling
-    call; K4 1, K5 2 a pretrain step; K1 2, K4 1, K5 2 a GAN step).
-    Returns the launches."""
+    MFU_MAX each; the host's launches exactly the calls' (K1 2, K2 2 a
+    sampling call that the host launches: its first, eager, and its
+    second, captured, the rest replaying the graph; K4 1, K5 2 a pretrain
+    step; K1 2, K4 1, K5 2 a GAN step). Returns the launches."""
     run = run_tool(torch, counters, "mfu_report", MFU_ARGV)
     fail_unless(run["code"] == 0, f"mfu_report exited {run['code']}")
     calls = MFU_CALLS
+    sampled = min(calls["sampler"], 2)          # eager, captured
     want = {name: 0 for name in counters}
-    want.update(word_attention=2 * calls["sampler"] + 2 * calls["gan"],
-                upblock_fused_eval=2 * calls["sampler"],
+    want.update(word_attention=2 * sampled + 2 * calls["gan"],
+                upblock_fused_eval=2 * sampled,
                 damsm_similarity=calls["damsm"] + calls["gan"],
                 damsm_similarity_bwd_square=2 * calls["damsm"]
                 + 2 * calls["gan"])
@@ -3641,6 +3655,21 @@ def calibrate_bn(torch, state, tokens, lengths, passes: int = 40) -> None:
     state.eval().cpu()
 
 
+def device_kernel_counts(torch, fn) -> dict:
+    """{kernel name: launches} of one call of ``fn`` on the card, by
+    torch.profiler (CUPTI): a CUDA graph's kernels too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+
+
 def serve(torch, card_name: str) -> dict:
     """Phase 3: the serving path through K2 and through K3, fp32 against
     the CPU. Returns {kernel name: launches in its serving call} and the
@@ -3689,6 +3718,7 @@ def serve(torch, card_name: str) -> dict:
             fn.launches = 0
         for fn in upblocks.values():
             fn.resident_launches = 0
+        # the shape's second call: the capture, then its first replay
         imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
@@ -3696,6 +3726,19 @@ def serve(torch, card_name: str) -> dict:
         fail_unless(counts == expect,
                     f"fused_upsample={mode!r}: launches {counts}, "
                     f"expected {expect}")
+        paths = (sampler.eager_calls, sampler.captures, sampler.replays)
+        fail_unless(paths == (1, 1, 1), f"fused_upsample={mode!r}: eager "
+                    f"calls, captures, replays {paths}, expected (1, 1, 1)")
+        # a replay launches nothing from the host: its kernels, by CUPTI
+        replayed = device_kernel_counts(
+            torch, lambda: sampler.generate_from_tokens(tokens, lengths,
+                                                        generator=gen))
+        mine = {k: sum(n for name, n in replayed.items() if k in name)
+                for k in ("word_attention", "upblock")}
+        fail_unless(mine == {"word_attention": 2, "upblock": 2}
+                    and sampler.replays == 2,
+                    f"fused_upsample={mode!r}: a replay ran {mine} "
+                    f"({sampler.replays} replays)")
         # the path's two UpBlocks (Ci=64 -> Co=32, bf16) take the
         # resident-weight kernel, counted by the path's own wrapper only
         resident = {name: fn.resident_launches
@@ -3717,6 +3760,8 @@ def serve(torch, card_name: str) -> dict:
                           "batch": BATCH, "shape": list(imgs.shape),
                           "launches": counts,
                           "resident_launches": resident,
+                          "replay_kernels": mine,
+                          "replay_kernels_all": sum(replayed.values()),
                           "mean": float(imgs.float().mean()), "std": std}),
               flush=True)
 
@@ -3726,14 +3771,26 @@ def serve(torch, card_name: str) -> dict:
                                                  dtype=np.float32))
     eps = torch.from_numpy(rng.standard_normal((2, cfg.cond_dim),
                                                dtype=np.float32))
-    got = gpu32.generate_stages(tokens[:2], lengths[:2], noise, eps)
+    # three calls on the card: eager, captured, replayed; the first and the
+    # third against the CPU
+    calls = [gpu32.generate_stages(tokens[:2], lengths[:2], noise, eps)
+             for _ in range(3)]
+    paths = (gpu32.eager_calls, gpu32.captures, gpu32.replays)
+    fail_unless(paths == (1, 1, 2), f"fp32 on the card: eager calls, "
+                f"captures, replays {paths}, expected (1, 1, 2)")
     ref = cpu32.generate_stages(tokens[:2], lengths[:2], noise, eps)
-    pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
-    err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+    errs = {}
+    for label, got in (("eager", calls[0]), ("replayed", calls[2])):
+        pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
+        errs[label] = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
     print(json.dumps({"phase": "serve_fp32_vs_cpu", "batch": 2,
-                      "max_abs_err": err, "atol": IMAGE_ATOL,
+                      "max_abs_err": errs["eager"],
+                      "max_abs_err_replayed": errs["replayed"],
+                      "atol": IMAGE_ATOL,
                       "final_std": float(ref[0][-1].std())}), flush=True)
-    fail_unless(err <= IMAGE_ATOL, f"fp32 GPU vs CPU images differ by {err}")
+    for label, err in errs.items():
+        fail_unless(err <= IMAGE_ATOL,
+                    f"fp32 GPU ({label}) vs CPU images differ by {err}")
     return launches, samplers, tokens, lengths
 
 
