@@ -16,6 +16,11 @@ stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
 first two captions (--swap).
 
+--generator dfgan serves DF-GAN's generator (models/dfgan.py: one 256^2
+stage, no attention maps, so no --save-attention or --export) through the
+same sampler; a checkpoint records its family, and one written before the
+field existed holds AttnGAN's.
+
 Every command line of JAX's ``cli.infer`` parses: --df-dim and
 --image-encoder, which the generator does not read, are checked against
 the checkpoint's recorded values like the shape flags; --fused-attention
@@ -67,11 +72,12 @@ BENCH_WINDOWS, BENCH_ITERS = 5, 4
 # explicit one that contradicts it is refused. The port serves only the
 # generator, so --df-dim and --image-encoder do nothing else.
 MODEL_FLAGS = ("num_stages", "gf_dim", "df_dim", "emb_dim", "seq_len",
-               "image_encoder")
+               "image_encoder", "generator")
 
 
 def parse_args(argv=None):
     from attngan_torch.core.config import Config
+    from attngan_torch.infer.sampler import GENERATORS
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -93,6 +99,11 @@ def parse_args(argv=None):
                    help="save per-word attention strips next to each image")
     p.add_argument("--out", default="generated_images")
     # model shapes: default to the checkpoint's, else GanConfig's
+    p.add_argument("--generator", default=None, choices=list(GENERATORS),
+                   help="the generator family: 'attngan' (3 stages, word "
+                        "attention; the default) or 'dfgan' (DF-GAN's one "
+                        "256^2 stage, text fused into every block); "
+                        "checked against the checkpoint's recorded value")
     p.add_argument("--num-stages", type=int, default=None, choices=[1, 2, 3])
     p.add_argument("--gf-dim", type=int, default=None)
     p.add_argument("--df-dim", type=int, default=None,
@@ -232,6 +243,8 @@ def _load_state(args, cfg, shapes, handler):
         # save_infer_state .pt records SHAPE_FIELDS alone)
         recorded = {k: sidecar[k] for k in SHAPE_FIELDS + ("image_encoder",)
                     if k in sidecar}
+        if sidecar:     # cli.train trains AttnGAN only
+            recorded.setdefault("generator", "attngan")
         if recorded:
             print(f"using the model config recorded at training time: "
                   f"{recorded}")
@@ -357,6 +370,8 @@ def _export(args, cfg, shapes, handler, device) -> str:
     )
 
     state = _load_state(args, cfg, shapes, handler)
+    if state.generator.unexportable:
+        raise SystemExit(f"--export: {state.generator.unexportable}")
     platforms = [s.strip() for s in args.export_platforms.split(",")
                  if s.strip()]
     batch = args.export_batch or None
@@ -424,6 +439,9 @@ def _main(args, device):
     if mesh is None:
         return None
     state = _load_state(args, cfg, shapes, handler)
+    if args.save_attention and not state.generator.has_attention:
+        raise SystemExit("--save-attention: this generator has no word "
+                         "attention maps")
     if args.int8:
         from attngan_torch.infer.quantize import Int8Sampler
 

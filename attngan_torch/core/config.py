@@ -101,15 +101,24 @@ class GanConfig:
     # The G-step's words loss through the DAMSM kernels (ops/cuda_damsm.py),
     # as DamsmConfig.fused_similarity; False runs the plain form.
     fused_similarity: bool = True
+    # the generator family that InferState builds (infer/sampler.py's
+    # GENERATORS): "attngan", the 3-stage attentional generator
+    # (models/generator.py), or "dfgan", DF-GAN's one-stage 256^2 generator
+    # (models/dfgan.py: gf_dim is its nf, z_dim + emb_dim its condition;
+    # cond_dim and num_stages are not read). The GAN step trains "attngan"
+    # only.
+    generator: str = "attngan"
 
     @property
     def resolutions(self) -> Tuple[int, ...]:
+        if self.generator == "dfgan":
+            return (256,)
         return (64, 128, 256)[: self.num_stages]
 
 
 # the fields that fix the weights' shapes (a checkpoint records them)
 SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
-                "seq_len", "num_stages")
+                "seq_len", "num_stages", "generator")
 
 
 @dataclass(frozen=True)

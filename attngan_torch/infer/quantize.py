@@ -44,21 +44,9 @@ CHUNK = 1 << 22
 
 
 def generator_sites(gen: nn.Module) -> Dict[nn.Module, str]:
-    """{layer: JAX module path} of a models/generator.py Generator: the
-    CondAugment and InitialStage Dense, each NextStage's word projection
-    (a 1x1 conv in JAX: the same per-output-channel scale) and ResBlock
-    convs, each MakeImage conv. The UpBlocks' convs are no sites."""
-    sites = {gen.ca.fc: "CondAugment_0/Dense_0", gen.gen1.fc: "gen1/Dense_0"}
-    for s in range(1, gen.num_stages + 1):
-        sites[getattr(gen, f"img_out{s}").conv] = f"img_out{s}/Conv_0"
-        if s == 1:
-            continue
-        stage = getattr(gen, f"gen{s}")
-        sites[stage.word_proj] = f"gen{s}/word_proj"
-        for j, block in enumerate(stage.res):
-            sites[block.conv1] = f"gen{s}/ResBlock_{j}/Conv_0"
-            sites[block.conv2] = f"gen{s}/ResBlock_{j}/Conv_1"
-    return sites
+    """{layer: name} of a generator's int8 sites, as its family's
+    ``int8_sites`` gives them (models/generator.py: JAX's module paths)."""
+    return gen.int8_sites()
 
 
 def trunk_sites(trunk: nn.Module) -> Dict[nn.Module, str]:
@@ -181,11 +169,12 @@ def quantized_call(act_scales: Dict[str, float], fn, *args,
 
 class Int8Sampler(Sampler):
     """The int8 twin of Sampler (JAX's ``Int8Sampler``): the generator's
-    sites quantized, the BiLSTM and K1 / K2 as in float serving. The
-    weights are quantized when the sampler is built; the activation scales
-    are calibrated on the first batch it serves (or ``calibrate_on``),
-    with that batch's own noise, which the quantized call then takes too.
-    On a mesh every rank calibrates to one process's scales."""
+    sites quantized, the BiLSTM and K1 / K2 (DF-GAN: K7) as in float
+    serving. The weights are quantized when the sampler is built; the
+    activation scales are calibrated on the first batch it serves (or
+    ``calibrate_on``), with that batch's own noise, which the quantized
+    call then takes too. On a mesh every rank calibrates to one process's
+    scales."""
 
     def __init__(self, state: InferState,
                  device: str | torch.device | None = None,

@@ -4,6 +4,9 @@ Tokens -> BiLSTM (fp32) -> word mask -> Generator (eval BatchNorm) ->
 denormalize. The noise and the reparametrization eps can be injected (the
 JAX package draws them with jax.random, which no torch generator
 reproduces); otherwise they come from an explicit ``torch.Generator``.
+``GanConfig.generator`` = "dfgan" serves DF-GAN's generator
+(models/dfgan.py) on the same path: one 256^2 stage, no attention maps,
+eps drawn or taken and not read.
 
 Data parallel (``Sampler(mesh=)``, JAX's ``Sampler(mesh=)``): every rank
 is given the whole batch's tokens, draws the whole batch's noise and eps,
@@ -37,6 +40,7 @@ import torch.nn as nn
 from attngan_torch.core.config import SHAPE_FIELDS, GanConfig, replace
 from attngan_torch.core.runtime import resolve_device
 from attngan_torch.data.dataset import word_mask
+from attngan_torch.models.dfgan import DFGenerator
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
 from attngan_torch.ops import int8
@@ -49,15 +53,28 @@ def denormalize(images: torch.Tensor) -> torch.Tensor:
     return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0)
 
 
+# the generator families, by GanConfig.generator
+GENERATORS = {"attngan": Generator, "dfgan": DFGenerator}
+
+
+def build_generator(cfg: GanConfig) -> nn.Module:
+    """The generator of ``cfg.generator``'s family, built from ``cfg``."""
+    if cfg.generator not in GENERATORS:
+        raise ValueError(f"generator must be one of {tuple(GENERATORS)}; "
+                         f"got {cfg.generator!r}")
+    return GENERATORS[cfg.generator].from_config(cfg)
+
+
 class InferState(nn.Module):
-    """What sampling touches: the text encoder and the generator."""
+    """What sampling touches: the text encoder and the generator (of the
+    family ``cfg.generator`` names)."""
 
     def __init__(self, cfg: GanConfig, vocab_size: int):
         super().__init__()
         self.cfg = cfg
         self.vocab_size = vocab_size
         self.rnn = BiLSTMEncoder(vocab_size, hidden_dim=cfg.emb_dim)
-        self.generator = Generator.from_config(cfg)
+        self.generator = build_generator(cfg)
 
 
 def save_infer_state(path: str, state: InferState) -> None:
@@ -71,9 +88,11 @@ def load_infer_state(path: str, cfg: Optional[GanConfig] = None,
                      device: str | torch.device | None = None) -> InferState:
     """Rebuild an InferState from ``save_infer_state``'s file. The file's
     shape fields override ``cfg``'s; its other fields (compute dtype, kernel
-    switches) are ``cfg``'s."""
+    switches) are ``cfg``'s. A file that records no generator family was
+    written before there were two, and holds AttnGAN's."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    cfg = replace(cfg or GanConfig(), **blob["shapes"])
+    cfg = replace(cfg or GanConfig(),
+                  **{"generator": "attngan", **blob["shapes"]})
     state = InferState(cfg, blob["vocab_size"])
     state.load_state_dict(blob["state_dict"], strict=True)
     return state.to(resolve_device(device))

@@ -17,7 +17,7 @@ jax.random, which no torch generator reproduces) or drawn from an explicit
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -143,6 +143,11 @@ class Generator(nn.Module):
     (B,L,h,w)], mu, logvar). Train or eval BatchNorm follows ``.train()`` /
     ``.eval()``."""
 
+    # word-attention maps to save (cli.infer --save-attention)
+    has_attention = True
+    # why infer/export.py cannot write this family (None: it can)
+    unexportable = None
+
     def __init__(self, gf_dim: int = 32, emb_dim: int = 256, z_dim: int = 100,
                  cond_dim: int = 100, num_stages: int = 3,
                  dtype: torch.dtype = torch.float32,
@@ -165,6 +170,25 @@ class Generator(nn.Module):
         return cls(cfg.gf_dim, cfg.emb_dim, cfg.z_dim, cfg.cond_dim,
                    cfg.num_stages, compute_dtype(cfg.compute_dtype),
                    cfg.fused_attention, cfg.fused_upsample)
+
+    def int8_sites(self) -> Dict[nn.Module, str]:
+        """{layer: JAX module path} of the int8 tier (infer/quantize.py):
+        the CondAugment and InitialStage Dense, each NextStage's word
+        projection (a 1x1 conv in JAX: the same per-output-channel scale)
+        and ResBlock convs, each MakeImage conv. The UpBlocks' convs are
+        no sites."""
+        sites = {self.ca.fc: "CondAugment_0/Dense_0",
+                 self.gen1.fc: "gen1/Dense_0"}
+        for s in range(1, self.num_stages + 1):
+            sites[getattr(self, f"img_out{s}").conv] = f"img_out{s}/Conv_0"
+            if s == 1:
+                continue
+            stage = getattr(self, f"gen{s}")
+            sites[stage.word_proj] = f"gen{s}/word_proj"
+            for j, block in enumerate(stage.res):
+                sites[block.conv1] = f"gen{s}/ResBlock_{j}/Conv_0"
+                sites[block.conv2] = f"gen{s}/ResBlock_{j}/Conv_1"
+        return sites
 
     def forward(self, noise, sent_emb, word_embs, mask,
                 eps: Optional[torch.Tensor] = None,

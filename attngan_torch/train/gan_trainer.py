@@ -104,6 +104,13 @@ class GanTrainer:
     def __init__(self, cfg: GanConfig, vocab_size: int,
                  device: str | torch.device | None = None,
                  mesh: Optional[Mesh] = None):
+        if cfg.generator != "attngan":
+            raise ValueError(
+                f"the GAN step trains AttnGAN's generator only; got "
+                f"generator={cfg.generator!r} (DF-GAN trains with its own "
+                f"objective, a hinge loss with MA-GP and its own "
+                f"discriminator, which the port does not have: it serves "
+                f"DF-GAN checkpoints)")
         if cfg.loss_variant not in LOSS_VARIANTS:
             raise ValueError(f"loss_variant must be one of {LOSS_VARIANTS}; "
                              f"got {cfg.loss_variant!r}")

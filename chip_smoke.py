@@ -47,6 +47,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    ``utils.timing.device_timeit`` of the K2 path's call beside CUDA events
    around the same timed loop (it may not read more than 2% under them:
    its clock must stop after the work) and ``time_ms`` of the call;
+   4c. DF-GAN (``dfgan_phase``; nf 32, sentence 256, 18-word captions,
+   bf16, batch 64): K7 against its plain version at each of the 12 DF
+   layers of a serving call, timed beside its bound (bytes at 3.35 TB/s),
+   its plain version and GAN.py's eager chain in bf16 (``chain_ms``), and
+   in fp32 at two odd shapes; the DF-GAN sampler's eager call, capture and
+   replay (K7 launched 12, 12 and 0 times by the host, the replay's 12 by
+   torch.profiler's count, the images within one bf16 step), img/s over 4
+   windows of 10 calls and the memory reserved; fp32 at batch 2, eager,
+   captured and replayed, against the port's CPU run;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -3952,6 +3961,152 @@ def profile_pretrain(torch, trainer, state, batch, card_name: str) -> None:
           flush=True)
 
 
+# phase 4c: DF-GAN at the dfgan-serve-b64 cell's widths (nf 32, sentence
+# 256, 18-word captions of a vocabulary of 5450, batch 64)
+DFGAN_SEQ, DFGAN_VOCAB = 18, 5450
+
+
+def dfgan_layers(rows: int):
+    """(B, H, W, C, upsample) of each of a call's 12 DF layers (K7): each
+    block's first on its input before the upsample, its second on c1's
+    output."""
+    from attngan_torch.models.dfgan import channel_pairs
+
+    h = 4
+    for cin, cout in channel_pairs(32):
+        yield rows, h, h, cin, True
+        yield rows, 2 * h, 2 * h, cout, False
+        h *= 2
+
+
+def df_chain(torch, x, consts, upsample):
+    """One DF layer as GAN.py runs it eagerly in x's type (NCHW
+    channels_last): the upsample, then two affines, each followed by a
+    LeakyReLU, each a pass over the map."""
+    import torch.nn.functional as F
+
+    g0, b0, g1, b1 = (t.to(x.dtype)[:, :, None, None] for t in consts)
+    nchw = x.permute(0, 3, 1, 2)
+
+    def run():
+        y = F.interpolate(nchw, scale_factor=2) if upsample else nchw
+        y = F.leaky_relu(g0 * y + b0, 0.2)
+        return F.leaky_relu(g1 * y + b1, 0.2)
+    return run
+
+
+def dfgan_phase(torch, card_name: str) -> tuple:
+    """Phase 4c. Returns ({"dfblock": totals over the 12 layers of a call
+    in bf16}, {"dfblock": launches in the sampler's capture call}), as
+    ``serve`` returns its capture call's launches."""
+    from attngan_torch.core.config import GanConfig, replace
+    from attngan_torch.infer.sampler import InferState, Sampler
+    from attngan_torch.ops.cuda_dfblock import dfblock, dfblock_cuda
+
+    g = torch.Generator("cuda").manual_seed(21)
+    total = dict(ms=0.0, plain_ms=0.0, chain_ms=0.0, bound_ms=0.0,
+                 bytes_ms=0.0, flops_ms=0.0, max_abs_err=0.0, form="stream")
+    cases = [(torch.bfloat16, s) for s in dfgan_layers(BATCH)]
+    cases += [(torch.float32, s) for s in ((3, 7, 5, 32, True),
+                                          (2, 9, 13, 64, False))]
+    for dtype, (b, h, w, c, up) in cases:
+        tname = str(dtype).split(".")[-1]
+        x = (2 * torch.randn((b, h, w, c), generator=g, device="cuda")
+             ).to(dtype)
+        consts = [torch.randn((b, c), generator=g, device="cuda")
+                  for _ in range(4)]
+        before = dfblock_cuda.launches
+        got = dfblock_cuda(x, *consts, upsample=up)
+        torch.cuda.synchronize()
+        fail_unless(dfblock_cuda.launches == before + 1,
+                    f"dfblock counted {dfblock_cuda.launches - before}")
+        want = dfblock(x, *consts, upsample=up)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(TOL[tname] if dtype == torch.bfloat16
+                                      else dict(atol=1e-5, rtol=0.0)))
+        err = float((got.float() - want.float()).abs().max())
+        line = {"phase": "dfgan", "step": "k7", "shape": [b, h, w, c],
+                "upsample": up, "dtype": tname, "max_abs_err": err}
+        if dtype == torch.bfloat16:
+            moved = nbytes(x, got, *consts)
+            flops = 8 * x.numel()
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(lambda: dfblock_cuda(x, *consts, upsample=up))
+            plain_ms = time_ms(lambda: dfblock(x, *consts, upsample=up))
+            chain_ms = time_ms(df_chain(torch, x, consts, up))
+            line.update(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                        bound_ms=bound, roofline_pct=100 * bound / ms,
+                        bytes=moved, card=card_name)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("chain_ms", chain_ms), ("bound_ms", bound),
+                           ("bytes_ms", bound),
+                           ("flops_ms", flops / FP32_FLOPS_PER_S * 1e3)):
+                total[key] += v
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+        print(json.dumps(line), flush=True)
+
+    # the serving path: eager call, capture, replays; fp32 against the CPU
+    cfg = GanConfig(generator="dfgan", seq_len=DFGAN_SEQ)
+    torch.manual_seed(0)
+    state = InferState(cfg, DFGAN_VOCAB)
+    lengths = torch.randint(8, DFGAN_SEQ + 1, (BATCH,), generator=g,
+                            device="cuda").cpu()
+    tokens = torch.randint(1, DFGAN_VOCAB, (BATCH, DFGAN_SEQ), generator=g,
+                           device="cuda")
+    tokens = torch.where(torch.arange(DFGAN_SEQ, device="cuda")
+                         < lengths.cuda()[:, None], tokens, 0)
+    noise = torch.randn((BATCH, cfg.z_dim), generator=g, device="cuda")
+    sampler = Sampler(state, device="cuda")
+    rises, images = [], []
+    for _ in range(3):                              # eager, capture, replay
+        dfblock_cuda.launches = 0
+        images.append(sampler.generate_from_tokens(tokens, lengths,
+                                                   noise).clone())
+        torch.cuda.synchronize()
+        rises.append(dfblock_cuda.launches)
+    fail_unless(rises == [12, 12, 0], f"DF-GAN K7 launches {rises}, "
+                f"expected [12, 12, 0]")
+    paths = (sampler.eager_calls, sampler.captures, sampler.replays)
+    fail_unless(paths == (1, 1, 2), f"DF-GAN eager calls, captures, "
+                f"replays {paths}, expected (1, 1, 2)")
+    for got in images[1:]:
+        torch.testing.assert_close(got, images[0], **TOL["bfloat16"])
+    windows = []          # timed before the profiler count below
+    for _ in range(4):
+        start = time.perf_counter()
+        for _ in range(10):
+            sampler.generate_from_tokens(tokens, lengths, noise)
+        torch.cuda.synchronize()
+        windows.append(10 * BATCH / (time.perf_counter() - start))
+    replayed = device_kernel_counts(torch, lambda: sampler.generate_from_tokens(
+        tokens, lengths, noise))
+    k7 = sum(n for k, n in replayed.items() if "dfblock" in k)
+    fail_unless(k7 == 12, f"a DF-GAN replay ran K7 {k7} times")
+    print(json.dumps({
+        "phase": "dfgan", "step": "serve", "batch": BATCH,
+        "k7_launches": rises, "paths": paths, "replay_k7": k7,
+        "replay_kernels": sum(replayed.values()),
+        "img_per_s": statistics.median(windows), "windows": windows,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "card": card_name}), flush=True)
+    del sampler, images
+    cfg32 = replace(cfg, compute_dtype="float32")
+    state32 = InferState(cfg32, DFGAN_VOCAB)
+    state32.load_state_dict(state.state_dict())
+    want = Sampler(state32, device="cpu").generate_from_tokens(
+        tokens[:2].cpu(), lengths[:2], noise[:2].cpu())
+    sampler = Sampler(state32, device="cuda")
+    errs = []
+    for _ in range(3):
+        got = sampler.generate_from_tokens(tokens[:2], lengths[:2], noise[:2])
+        errs.append(float((got.cpu() - want).abs().max()))
+    fail_unless(max(errs) < IMAGE_ATOL, f"DF-GAN fp32 on the card against "
+                f"the CPU: {errs}")
+    print(json.dumps({"phase": "dfgan", "step": "fp32_vs_cpu", "batch": 2,
+                      "max_abs_err": errs, "card": card_name}), flush=True)
+    return {"dfblock": total}, {"dfblock": rises[1]}
+
+
 def main() -> int:
     import torch
 
@@ -4000,6 +4155,9 @@ def main() -> int:
         profile(torch, samplers, tokens, lengths, card_name)
     del samplers
     lap("serving")
+    dfgan_totals, dfgan_launches = dfgan_phase(torch, card_name)
+    totals.update(dfgan_totals)
+    lap("dfgan")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
@@ -4035,9 +4193,9 @@ def main() -> int:
     # launches summed over every path: serving, pretrain, GAN step, loops,
     # captioner, pretrain options, data parallel (every rank's), side
     # tiers, the last modules (MFU and the tools)
-    for counted in (damsm_launches, gan_launches, loop_launches,
-                    captioner_launches, options_launches, dp_launches,
-                    side_launches, last_launches):
+    for counted in (dfgan_launches, damsm_launches, gan_launches,
+                    loop_launches, captioner_launches, options_launches,
+                    dp_launches, side_launches, last_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -4057,6 +4215,7 @@ def main() -> int:
         "damsm_similarity_bwd_tiled": (
             "attngan_torch/csrc/damsm_similarity.cu",
             "attngan_tpu/ops/pallas_damsm.py:340"),
+        "dfblock": ("attngan_torch/csrc/dfblock.cu", None),   # DF-GAN's
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
