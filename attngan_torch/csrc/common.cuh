@@ -1,10 +1,12 @@
 // Shared helpers of the port's CUDA kernels: fp32 <-> storage-type
-// conversion and 4-wide loads/stores. Storage types are float and
-// __nv_bfloat16; arithmetic is always fp32.
+// conversion, 4-wide loads/stores and 16-byte vectors. Storage types are
+// float and __nv_bfloat16; arithmetic is always fp32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace attngan {
 
@@ -47,5 +49,49 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
   *reinterpret_cast<uint2*>(p) = raw;
 }
+
+// 16 bytes of storage type T <-> fp32 values
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void unpack(const uint4 r, float v[4]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float v[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void unpack(const uint4 r, float v[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      memcpy(&h, &w[i], sizeof(h));
+      const float2 f = __bfloat1622float2(h);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float v[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      memcpy(&w[i], &h, sizeof(h));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 
 }  // namespace attngan

@@ -68,6 +68,7 @@ class InitialStage(nn.Module):
         super().__init__()
         self.ng = ng
         self.dtype = dtype
+        self.fused = bool(fused_upsample)     # its BN -> GLU as K8
         self.fc = nn.Linear(in_features, ng * 4 * 4 * 2, bias=False)
         self.bn = BatchNorm(ng * 4 * 4 * 2)
         self.up = nn.ModuleList(
@@ -81,7 +82,10 @@ class InitialStage(nn.Module):
         h = intercept(self.fc, x)
         if h is None:
             h = x.to(self.dtype) @ self.fc.weight.to(self.dtype).t()
-        x = glu(self.bn(h).to(self.dtype), dim=-1)
+        if h.dtype == self.dtype:
+            x = self.bn.forward_glu(h, self.fused)
+        else:
+            x = glu(self.bn(h).to(self.dtype), dim=-1)
         # the JAX package reshapes the flat features as NHWC (-1, 4, 4, ng);
         # that (B, 4, 4, ng) tensor IS the channels_last NCHW layout
         x = x.view(-1, 4, 4, self.ng).permute(0, 3, 1, 2)
@@ -102,7 +106,8 @@ class NextStage(nn.Module):
         self.fused_attention = fused_attention
         # the JAX conv1x1 over (B, 1, L, emb) words: a bias-free Linear
         self.word_proj = nn.Linear(emb_dim, gf_dim, bias=False)
-        self.res = nn.ModuleList(ResBlock(2 * gf_dim, dtype)
+        self.res = nn.ModuleList(ResBlock(2 * gf_dim, dtype,
+                                          bool(fused_upsample))
                                  for _ in range(num_residual))
         self.up = UpBlock(2 * gf_dim, gf_dim, dtype, fused_upsample)
 

@@ -28,12 +28,18 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("word_attention", "upblock", "damsm_similarity", "dfblock")
+SOURCES = ("word_attention", "upblock", "damsm_similarity", "dfblock",
+           "bn_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # storage types the kernels take, as the C entry points number them
 # (csrc/common.cuh::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def vector_values(dtype: torch.dtype) -> int:
+    """Values of a 16-byte access: 8 bf16, 4 fp32."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
 
 
 def _nvcc() -> str:

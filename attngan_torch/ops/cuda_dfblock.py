@@ -43,11 +43,6 @@ def dfblock(x: torch.Tensor, g0: torch.Tensor, b0: torch.Tensor,
     return y.contiguous()
 
 
-def vector_values(dtype: torch.dtype) -> int:
-    """Values of a 16-byte access: 8 bf16, 4 fp32."""
-    return 16 // torch.empty((), dtype=dtype).element_size()
-
-
 def check_inputs(x: torch.Tensor, *constants: torch.Tensor) -> None:
     """Raise on anything csrc/dfblock.cu does not take."""
     if x.dim() != 4:
@@ -56,7 +51,7 @@ def check_inputs(x: torch.Tensor, *constants: torch.Tensor) -> None:
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"dfblock_cuda takes fp32 or bf16; got {x.dtype}")
     b, c = x.shape[0], x.shape[3]
-    v = vector_values(x.dtype)
+    v = _build.vector_values(x.dtype)
     if c % v or c // v > 256 or not 1 <= b <= 65535:
         raise ValueError(f"dfblock_cuda: C={c} must be a multiple of {v} "
                          f"and at most {256 * v} ({x.dtype}), B={b} in "

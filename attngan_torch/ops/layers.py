@@ -11,7 +11,13 @@ normalizes with the biased batch variance in fp32 and folds the unbiased
 one into the running average (momentum 0.1, eps 1e-5: PyTorch's own rule),
 through F.batch_norm's fused kernels on the GPU and TorchBatchNorm's
 two-pass sums on the CPU; eval mode folds the statistics into fp32
-constants cast to x's dtype.
+constants cast to x's dtype. The generator's eval BatchNorm -> GLU and
+BatchNorm -> residual add (``BatchNorm.forward_glu`` / ``forward_add``)
+run as one pass of K8 (ops/cuda_bn_epilogue.py) where its block's fused
+switch is on (GanConfig.fused_upsample, which the exported plain path
+clears) and the kernel takes them: eval mode, grad off, CUDA tensors in
+channels_last (or (B, C)) of one type it takes; elsewhere, and always on
+the CPU, as the chain above.
 Under data parallelism (``parallel.mesh.sync_batch_norm_`` sets ``mesh``)
 train mode takes the statistics of the global batch, as the JAX step does
 under SPMD: the mean, then the mean squared deviation from it, each a sum
@@ -30,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from attngan_torch.ops.cuda_bn_epilogue import bn_epilogue_cuda, takes
 from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
 from attngan_torch.ops.int8 import intercept
 from attngan_torch.ops.cuda_upblock_packed import (
@@ -48,6 +55,15 @@ def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """Gated linear unit: first half * sigmoid(second half) along ``dim``."""
     a, b = x.chunk(2, dim=dim)
     return a * torch.sigmoid(b)
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """(B, C) as it is, (B, C, H, W) as its NHWC view: channels last."""
+    return x if x.dim() == 2 else x.permute(0, 2, 3, 1)
+
+
+def _channels_first(y: torch.Tensor) -> torch.Tensor:
+    return y if y.dim() == 2 else y.permute(0, 3, 1, 2)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -170,6 +186,36 @@ class BatchNorm(nn.Module):
         y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
+    def forward_glu(self, x: torch.Tensor, fused: bool = False
+                    ) -> torch.Tensor:
+        """``glu(self(x))`` over the channels (dim 1); with ``fused``, one
+        K8 launch where the kernel takes it."""
+        if fused and self._epilogue_takes(x):
+            return _channels_first(bn_epilogue_cuda(
+                _channels_last(x), *self._vectors(), self.eps))
+        return glu(self(x))
+
+    def forward_add(self, x: torch.Tensor, skip: torch.Tensor,
+                    fused: bool = False) -> torch.Tensor:
+        """``self(x) + skip``; with ``fused``, one K8 launch where the
+        kernel takes it."""
+        if fused and self._epilogue_takes(x, skip):
+            return _channels_first(bn_epilogue_cuda(
+                _channels_last(x), *self._vectors(), self.eps,
+                _channels_last(skip)))
+        return self(x) + skip
+
+    def _vectors(self):
+        return self.weight, self.bias, self.running_mean, self.running_var
+
+    def _epilogue_takes(self, x: torch.Tensor,
+                        skip: torch.Tensor | None = None) -> bool:
+        """Whether K8 computes this eval epilogue (it has no backward)."""
+        if self.training or torch.is_grad_enabled() or x.dim() not in (2, 4):
+            return False
+        return takes(_channels_last(x), self._vectors(),
+                     None if skip is None else _channels_last(skip))
+
 
 class UpBlock(nn.Module):
     """2x nearest upsample -> conv3x3(2*out) -> BN -> GLU.
@@ -178,7 +224,8 @@ class UpBlock(nn.Module):
     kernel, with the JAX meanings (attngan_tpu/ops/layers.py:282-303):
     True / "pallas" = K2 (ops/cuda_upblock.py); "packed" = K3
     (ops/cuda_upblock_packed.py) where Ci=64 -> Co=32 and the dims are
-    even, else the plain chain; "packed64" = K3 only at a 64^2 input.
+    even, else the plain chain; "packed64" = K3 only at a 64^2 input. Any
+    of them runs the plain chain's BN -> GLU as K8.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -209,24 +256,27 @@ class UpBlock(nn.Module):
                       else upblock_fused_eval_cuda)
                 return fn(nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
             x = conv(upsample_nearest_2x(x), self.conv, self.dtype)
-            return glu(self.bn(x))
+            return self.bn.forward_glu(x, bool(self.fused_inference))
 
 
 class ResBlock(nn.Module):
-    """conv3x3(2c) -> BN -> GLU -> conv3x3(c) -> BN, plus the input."""
+    """conv3x3(2c) -> BN -> GLU -> conv3x3(c) -> BN, plus the input;
+    ``fused_inference`` runs the two BN epilogues as K8."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 fused_inference: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused_inference = fused_inference
         self.conv1 = conv3x3(features, 2 * features)
         self.bn1 = BatchNorm(2 * features)
         self.conv2 = conv3x3(features, features)
         self.bn2 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = glu(self.bn1(conv(x, self.conv1, self.dtype)))
-        y = self.bn2(conv(y, self.conv2, self.dtype))
-        return y + x
+        fused = self.fused_inference
+        y = self.bn1.forward_glu(conv(x, self.conv1, self.dtype), fused)
+        return self.bn2.forward_add(conv(y, self.conv2, self.dtype), x, fused)
 
 
 class DownBlock(nn.Module):

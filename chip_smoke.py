@@ -56,6 +56,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    torch.profiler's count, the images within one bf16 step), img/s over 4
    windows of 10 calls and the memory reserved; fp32 at batch 2, eager,
    captured and replayed, against the port's CPU run;
+   4d. the eval BatchNorm epilogue (``bn_epilogue_phase``, K8) against its
+   plain version at each site shape of an AttnGAN serving call at batch
+   64 in bf16 (InitialStage's GLU over (64, 16384), the four stage-1
+   UpBlocks', each ResBlock's GLU and residual add), timed beside its
+   bound (bytes at 3.35 TB/s), its plain version and PyTorch's chain as
+   the generator ran it before K8 (``chain_ms``), each weighted by its
+   sites a call, and in fp32 at odd shapes; the serving sampler's eager
+   call, capture and replay (K8 launched 13, 13 and 0 times by the host,
+   the replay's 13 by torch.profiler's count);
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -230,7 +239,8 @@ FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
 TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
 NO_SPILL = ("word_attention_stream_kernel", "upblock_resident_kernel",
-            "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel")
+            "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel",
+            "bn_epilogue_kernel")
 L2_BYTES = 50 * 2 ** 20
 # device_timeit's seconds a call may read at most this share under the
 # CUDA events around the same timed loop
@@ -4107,6 +4117,117 @@ def dfgan_phase(torch, card_name: str) -> tuple:
     return {"dfblock": total}, {"dfblock": rises[1]}
 
 
+# phase 4d: K8 at the lsun-serve-b64 cell's sites (GF 32, batch 64, bf16):
+# (H, W, C, residual, sites a call); H = 0 is InitialStage's (B, C)
+BN_SITES = ((0, 0, 16384, False, 1), (8, 8, 512, False, 1),
+            (16, 16, 256, False, 1), (32, 32, 128, False, 1),
+            (64, 64, 64, False, 1), (64, 64, 128, False, 2),
+            (64, 64, 64, True, 2), (128, 128, 128, False, 2),
+            (128, 128, 64, True, 2))
+
+
+def bn_epilogue_phase(torch, card_name: str) -> tuple:
+    """Phase 4d. Returns ({"bn_epilogue": totals over the 13 sites of a
+    call in bf16}, {"bn_epilogue": launches in the sampler's capture
+    call})."""
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.infer.sampler import InferState, Sampler
+    from attngan_torch.ops.cuda_bn_epilogue import (
+        bn_epilogue,
+        bn_epilogue_cuda,
+    )
+    from attngan_torch.ops.layers import BatchNorm, glu
+
+    g = torch.Generator("cuda").manual_seed(22)
+    total = dict(ms=0.0, plain_ms=0.0, chain_ms=0.0, bound_ms=0.0,
+                 bytes_ms=0.0, flops_ms=0.0, max_abs_err=0.0, form="stream")
+    cases = [(torch.bfloat16, (BATCH, *site)) for site in BN_SITES]
+    cases += [(torch.float32, site) for site in ((3, 7, 5, 32, False, 0),
+                                                 (2, 9, 13, 64, True, 0))]
+    for dtype, (b, h, w, c, residual, sites) in cases:
+        tname = str(dtype).split(".")[-1]
+        shape = (b, c) if h == 0 else (b, h, w, c)
+        x = (2 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+        skip = ((2 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+                if residual else None)
+        bn = BatchNorm(c).cuda().eval()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(0.0, 0.1, generator=g)
+            bn.running_mean.normal_(0.0, 0.5, generator=g)
+            bn.running_var.uniform_(0.5, 1.5, generator=g)
+        vectors = (bn.weight.detach(), bn.bias.detach(), bn.running_mean,
+                   bn.running_var)
+        before = bn_epilogue_cuda.launches
+        got = bn_epilogue_cuda(x, *vectors, bn.eps, skip)
+        torch.cuda.synchronize()
+        counted = bn_epilogue_cuda.launches - before
+        fail_unless(counted == 1, f"bn_epilogue counted {counted}")
+        want = bn_epilogue(x, *vectors, bn.eps, skip)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(TOL[tname] if dtype == torch.bfloat16
+                                      else dict(atol=1e-5, rtol=0.0)))
+        err = float((got.float() - want.float()).abs().max())
+        line = {"phase": "bn_epilogue", "step": "k8", "shape": list(shape),
+                "residual": residual, "dtype": tname, "max_abs_err": err}
+        if dtype == torch.bfloat16:
+            moved = nbytes(x, got, *vectors) + (nbytes(skip) if residual
+                                                else 0)
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(lambda: bn_epilogue_cuda(x, *vectors, bn.eps, skip))
+            plain_ms = time_ms(lambda: bn_epilogue(x, *vectors, bn.eps,
+                                                   skip))
+            # the chain as the generator ran it before K8, on its NCHW
+            # (channels_last) view
+            nchw = x if h == 0 else x.permute(0, 3, 1, 2)
+            if residual:
+                skip_nchw = skip.permute(0, 3, 1, 2)
+                chain_ms = time_ms(lambda: bn(nchw) + skip_nchw)
+            else:
+                chain_ms = time_ms(lambda: glu(bn(nchw)))
+            line.update(sites=sites, ms=ms, plain_ms=plain_ms,
+                        chain_ms=chain_ms, bound_ms=bound,
+                        roofline_pct=100 * bound / ms, bytes=moved,
+                        card=card_name)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("chain_ms", chain_ms), ("bound_ms", bound),
+                           ("bytes_ms", bound)):
+                total[key] += sites * v
+            total["flops_ms"] += sites * 6 * x.numel() / FP32_FLOPS_PER_S * 1e3
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+        print(json.dumps(line), flush=True)
+
+    # the serving path at batch 64: eager call, capture, replay
+    torch.manual_seed(0)
+    state = InferState(GanConfig(), VOCAB)
+    with torch.no_grad():
+        for name, t in state.generator.named_buffers():
+            if name.endswith("running_var"):
+                t.uniform_(0.5, 1.5)
+    lengths = torch.randint(1, SEQ_LEN + 1, (BATCH,), generator=g,
+                            device="cuda").cpu()
+    tokens = torch.randint(1, VOCAB, (BATCH, SEQ_LEN), generator=g,
+                           device="cuda")
+    sampler = Sampler(state, device="cuda")
+    rises = []
+    for _ in range(3):                              # eager, capture, replay
+        bn_epilogue_cuda.launches = 0
+        sampler.generate_from_tokens(tokens, lengths)
+        torch.cuda.synchronize()
+        rises.append(bn_epilogue_cuda.launches)
+    fail_unless(rises == [13, 13, 0], f"K8 launches {rises}, expected "
+                f"[13, 13, 0]")
+    replayed = device_kernel_counts(
+        torch, lambda: sampler.generate_from_tokens(tokens, lengths))
+    k8 = sum(n for k, n in replayed.items() if "bn_epilogue" in k)
+    fail_unless(k8 == 13, f"a replay ran K8 {k8} times")
+    print(json.dumps({"phase": "bn_epilogue", "step": "serve",
+                      "batch": BATCH, "k8_launches": rises, "replay_k8": k8,
+                      "replay_kernels": sum(replayed.values()),
+                      "totals": total, "card": card_name}), flush=True)
+    return {"bn_epilogue": total}, {"bn_epilogue": rises[1]}
+
+
 def main() -> int:
     import torch
 
@@ -4158,6 +4279,9 @@ def main() -> int:
     dfgan_totals, dfgan_launches = dfgan_phase(torch, card_name)
     totals.update(dfgan_totals)
     lap("dfgan")
+    bn_totals, bn_launches = bn_epilogue_phase(torch, card_name)
+    totals.update(bn_totals)
+    lap("bn_epilogue")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
@@ -4190,12 +4314,14 @@ def main() -> int:
     last_launches = last_modules_phase(torch, card_name)
     lap("last_modules")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
-    # launches summed over every path: serving, pretrain, GAN step, loops,
-    # captioner, pretrain options, data parallel (every rank's), side
-    # tiers, the last modules (MFU and the tools)
-    for counted in (dfgan_launches, damsm_launches, gan_launches,
-                    loop_launches, captioner_launches, options_launches,
-                    dp_launches, side_launches, last_launches):
+    # launches summed over every path: serving, DF-GAN, the BN epilogue's
+    # serving call, pretrain, GAN step, loops, captioner, pretrain
+    # options, data parallel (every rank's), side tiers, the last modules
+    # (MFU and the tools)
+    for counted in (dfgan_launches, bn_launches, damsm_launches,
+                    gan_launches, loop_launches, captioner_launches,
+                    options_launches, dp_launches, side_launches,
+                    last_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -4216,6 +4342,8 @@ def main() -> int:
             "attngan_torch/csrc/damsm_similarity.cu",
             "attngan_tpu/ops/pallas_damsm.py:340"),
         "dfblock": ("attngan_torch/csrc/dfblock.cu", None),   # DF-GAN's
+        # XLA fuses the eval BatchNorm epilogue on the TPU
+        "bn_epilogue": ("attngan_torch/csrc/bn_epilogue.cu", None),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
