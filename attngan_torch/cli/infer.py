@@ -123,11 +123,10 @@ def parse_args(argv=None):
                         "refused with --export")
     p.add_argument("--fused-upsample", default=None,
                    choices=["pallas", "packed", "packed64", "off"],
-                   help="eval UpBlock route at >=64^2: 'pallas' (the "
-                        "default) = the K2 kernel (any dims), 'packed' = "
-                        "the Ci=64->Co=32 K3 kernel where the dims fit, "
-                        "'packed64' = K3 only at 64^2, 'off' = plain "
-                        "upsample + conv")
+                   help="JAX's eval UpBlock routes; on Hopper 'pallas' "
+                        "(the default), 'packed' and 'packed64' are all "
+                        "the generator's eval kernels (K2 at >=64^2, K8 at "
+                        "each BN epilogue), 'off' = PyTorch's plain chain")
     p.add_argument("--int8-percentile", type=float, default=99.0,
                    help="int8 activation-scale calibration percentile "
                         "(100 = the max; 99, JAX's measured default, clips "
@@ -163,11 +162,10 @@ def parse_args(argv=None):
 def _config(args):
     from attngan_torch.core.config import GanConfig
 
-    mode = {None: True, "pallas": True, "off": False}.get(
-        args.fused_upsample, args.fused_upsample)
     shapes = {k: getattr(args, k) for k in MODEL_FLAGS
               if getattr(args, k) is not None}
-    return GanConfig(compute_dtype=args.compute_dtype, fused_upsample=mode,
+    return GanConfig(compute_dtype=args.compute_dtype,
+                     fused_upsample=args.fused_upsample != "off",
                      **shapes), shapes
 
 

@@ -93,13 +93,12 @@ class GanConfig:
     # On the GPU the hand-written kernels ARE the path: on by default, and a
     # CUDA tensor never falls back to the plain PyTorch version.
     fused_attention: bool = True
-    # True / "pallas" = ops/cuda_upblock.py (any dims); "packed" = the
-    # Ci=64 -> Co=32 specialisation (ops/cuda_upblock_packed.py) where the
-    # dims fit; "packed64" = the specialisation only at a 64^2 input. The
-    # names keep the JAX meaning (attngan_tpu/ops/layers.py:282-289). Any
-    # of them also runs the generator's eval BN -> GLU and BN -> residual
-    # add as K8 (ops/cuda_bn_epilogue.py); False runs PyTorch's chain there.
-    fused_upsample: bool | str = True
+    # The generator's eval kernels: the UpBlocks at >= 64^2 as K2
+    # (ops/cuda_upblock.py) and every eval BN -> GLU and BN -> residual add
+    # as K8 (ops/cuda_bn_epilogue.py); False runs PyTorch's chain there.
+    # JAX's fused route names (attngan_tpu/ops/layers.py:282-289) all
+    # mean True here; cli/infer.py maps them.
+    fused_upsample: bool = True
     # The G-step's words loss through the DAMSM kernels (ops/cuda_damsm.py),
     # as DamsmConfig.fused_similarity; False runs the plain form.
     fused_similarity: bool = True

@@ -64,11 +64,11 @@ class InitialStage(nn.Module):
 
     def __init__(self, ng: int, in_features: int,
                  dtype: torch.dtype = torch.float32,
-                 fused_upsample: bool | str = False):
+                 fused_upsample: bool = False):
         super().__init__()
         self.ng = ng
         self.dtype = dtype
-        self.fused = bool(fused_upsample)     # its BN -> GLU as K8
+        self.fused = fused_upsample     # its BN -> GLU as K8
         self.fc = nn.Linear(in_features, ng * 4 * 4 * 2, bias=False)
         self.bn = BatchNorm(ng * 4 * 4 * 2)
         self.up = nn.ModuleList(
@@ -100,14 +100,13 @@ class NextStage(nn.Module):
     def __init__(self, gf_dim: int, emb_dim: int, num_residual: int = 2,
                  dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False,
-                 fused_upsample: bool | str = False):
+                 fused_upsample: bool = False):
         super().__init__()
         self.dtype = dtype
         self.fused_attention = fused_attention
         # the JAX conv1x1 over (B, 1, L, emb) words: a bias-free Linear
         self.word_proj = nn.Linear(emb_dim, gf_dim, bias=False)
-        self.res = nn.ModuleList(ResBlock(2 * gf_dim, dtype,
-                                          bool(fused_upsample))
+        self.res = nn.ModuleList(ResBlock(2 * gf_dim, dtype, fused_upsample)
                                  for _ in range(num_residual))
         self.up = UpBlock(2 * gf_dim, gf_dim, dtype, fused_upsample)
 
@@ -157,7 +156,7 @@ class Generator(nn.Module):
                  cond_dim: int = 100, num_stages: int = 3,
                  dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False,
-                 fused_upsample: bool | str = False):
+                 fused_upsample: bool = False):
         super().__init__()
         self.ca = CondAugment(emb_dim, cond_dim)
         self.gen1 = InitialStage(16 * gf_dim, z_dim + cond_dim, dtype,

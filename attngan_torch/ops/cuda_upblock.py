@@ -8,7 +8,11 @@ fp32 on the CUDA cores (Co % 4 == 0). In bf16 at the dims of
 ``RESIDENT_DIMS`` (the serving path's Ci=64 -> Co=32) it is the Hopper form,
 ``upblock_resident_kernel``: persistent blocks that keep every parity's
 weights in shared memory, a cp.async ring of input tiles and wgmma
-products; other bf16 dims take the warp-level ``upblock_mma_kernel``.
+products; other bf16 dims take the warp-level ``upblock_mma_kernel``
+(``form`` names the kernel a launch takes). The JAX package's lane-packed
+kernel for those same dims (attngan_tpu/ops/pallas_upblock_packed.py)
+needs no kernel of its own here: its packing fills the TPU's 128 lanes,
+and the resident form is Hopper's kernel for those dims.
 ``upblock_fused_eval`` below is its
 plain version (the same parity decomposition, products accumulated in
 fp32), which the wrapper runs for a CPU tensor and nowhere else. Forward
@@ -61,6 +65,16 @@ def parity_weights(weight: torch.Tensor) -> torch.Tensor:
 RESIDENT_DIMS = frozenset({(64, 32)})
 # source pixels of one work unit of that kernel (res::kRows, res::kCols)
 UNIT_ROWS, UNIT_COLS = 8, 16
+
+
+def form(dtype: torch.dtype, ci: int, co: int) -> str:
+    """The kernel of csrc/upblock.cu that a launch at these dims takes:
+    "resident" (``upblock_resident_kernel``) in bf16 at ``RESIDENT_DIMS``,
+    "mma" (``upblock_mma_kernel``) in bf16 elsewhere, "cuda_cores"
+    (``upblock_kernel``) in fp32."""
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    return "resident" if (ci, co) in RESIDENT_DIMS else "mma"
 
 
 def resident_weights(wp: torch.Tensor) -> torch.Tensor:
@@ -165,30 +179,6 @@ def kernel_args(x: torch.Tensor, weight: torch.Tensor, bn_k: torch.Tensor,
     return wp, scale, bias, out
 
 
-def launch(x: torch.Tensor, weight: torch.Tensor, bn_k: torch.Tensor,
-           bn_b: torch.Tensor, resident: bool) -> torch.Tensor:
-    """One launch of csrc/upblock.cu on checked CUDA inputs: the resident
-    form (bf16 at ``RESIDENT_DIMS``) or the ``upblock_fused_eval`` entry.
-    Counts nothing: each wrapper counts its own launches."""
-    b, h, w, ci = x.shape
-    co = weight.shape[0] // 2
-    wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if resident:
-        status = lib().upblock_fused_eval_resident(
-            x.data_ptr(), resident_weights(wp).data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, ci, co,
-            resident_grid(b, h, w, _sm_count(x.device)), stream)
-        _build.check(status, "upblock_fused_eval (resident)")
-    else:
-        status = lib().upblock_fused_eval(
-            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
-            co, stream)
-        _build.check(status, "upblock_fused_eval")
-    return out
-
-
 def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
                             bn_k: torch.Tensor,
                             bn_b: torch.Tensor) -> torch.Tensor:
@@ -201,9 +191,23 @@ def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     check_inputs("upblock_fused_eval_cuda", x, weight, bn_k, bn_b)
-    resident = (x.dtype == torch.bfloat16
-                and (x.shape[3], weight.shape[0] // 2) in RESIDENT_DIMS)
-    out = launch(x, weight, bn_k, bn_b, resident)
+    b, h, w, ci = x.shape
+    co = weight.shape[0] // 2
+    wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    resident = form(x.dtype, ci, co) == "resident"
+    if resident:
+        status = lib().upblock_fused_eval_resident(
+            x.data_ptr(), resident_weights(wp).data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, ci, co,
+            resident_grid(b, h, w, _sm_count(x.device)), stream)
+        _build.check(status, "upblock_fused_eval (resident)")
+    else:
+        status = lib().upblock_fused_eval(
+            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
+            co, stream)
+        _build.check(status, "upblock_fused_eval")
     upblock_fused_eval_cuda.resident_launches += resident
     upblock_fused_eval_cuda.launches += 1
     return out

@@ -39,11 +39,6 @@ import torch.nn.functional as F
 from attngan_torch.ops.cuda_bn_epilogue import bn_epilogue_cuda, takes
 from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
 from attngan_torch.ops.int8 import intercept
-from attngan_torch.ops.cuda_upblock_packed import (
-    CI as PACKED_CI,
-    CO as PACKED_CO,
-    upblock_fused_eval_packed_cuda,
-)
 from attngan_torch.utils.timing import span
 from attngan_torch.utils.training import calculate_out_hw
 
@@ -220,19 +215,15 @@ class BatchNorm(nn.Module):
 class UpBlock(nn.Module):
     """2x nearest upsample -> conv3x3(2*out) -> BN -> GLU.
 
-    ``fused_inference`` routes eval-mode forwards at >= 64^2 through a
-    kernel, with the JAX meanings (attngan_tpu/ops/layers.py:282-303):
-    True / "pallas" = K2 (ops/cuda_upblock.py); "packed" = K3
-    (ops/cuda_upblock_packed.py) where Ci=64 -> Co=32 and the dims are
-    even, else the plain chain; "packed64" = K3 only at a 64^2 input. Any
-    of them runs the plain chain's BN -> GLU as K8.
+    ``fused_inference`` runs eval-mode forwards at >= 64^2 as K2
+    (ops/cuda_upblock.py), JAX's fused route (attngan_tpu/ops/layers.py:
+    282-303), and the plain chain's BN -> GLU elsewhere as K8.
     """
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
-                 fused_inference: bool | str = False):
+                 fused_inference: bool = False):
         super().__init__()
-        self.out_features = out_features
         self.dtype = dtype
         self.fused_inference = fused_inference
         self.conv = conv3x3(in_features, 2 * out_features)
@@ -240,23 +231,13 @@ class UpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("attngan.upblock"):
-            ci, h, w = x.shape[1:]
-            mode = self.fused_inference
-            packed_ok = (ci == PACKED_CI and self.out_features == PACKED_CO
-                         and h % 2 == 0 and w % 2 == 0)
-            if mode == "packed64" and not (packed_ok and h == 64):
-                mode = False
-            if mode == "packed" and not packed_ok:
-                mode = False
-            if mode and not self.training and h >= 64:
+            if self.fused_inference and not self.training and x.shape[2] >= 64:
                 k, b = self.bn.fold()
                 nhwc = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
-                fn = (upblock_fused_eval_packed_cuda
-                      if mode in ("packed", "packed64")
-                      else upblock_fused_eval_cuda)
-                return fn(nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
+                return upblock_fused_eval_cuda(
+                    nhwc, self.conv.weight, k, b).permute(0, 3, 1, 2)
             x = conv(upsample_nearest_2x(x), self.conv, self.dtype)
-            return self.bn.forward_glu(x, bool(self.fused_inference))
+            return self.bn.forward_glu(x, self.fused_inference)
 
 
 class ResBlock(nn.Module):

@@ -238,7 +238,7 @@ class GanTrainer:
                  eps: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
         """The eval-mode cascade (BN running statistics; on the GPU the
-        UpBlocks at >= 64^2 take K2 or K3): the generator's ([per-stage
+        UpBlocks at >= 64^2 take K2): the generator's ([per-stage
         (B, R, R, 3)], [attention maps], mu, logvar)."""
         dev = self.device
         was_training = state.gen.training

@@ -14,11 +14,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    and bf16 at batch 8, bf16 at the GAN step's batch 16 (K1's shapes in the
    train-mode generator), then fp32 and bf16 at the serving batch, which
    are also timed (device time of one call, median of 20, see ``time_ms``)
-   beside the card's bound; each K1-K3 line names the kernel's form (K1:
-   ``stream`` and its plan; K2 and K3: ``resident`` in bf16, ``cuda_cores``
-   in fp32, as their launch counters must show); K3 must launch the
-   resident form in bf16 without moving K2's counters, and give K2's bits
-   on the same inputs; K2 beside the plain serving chain too (``chain_ms``:
+   beside the card's bound; each K1 and K2 line names the kernel's form
+   (K1: ``stream`` and its plan; K2: ``resident`` in bf16, ``cuda_cores``
+   in fp32, as its launch counters must show); K2 beside the plain
+   serving chain too (``chain_ms``:
    upsample, bf16 conv, eval BN, GLU as the generator runs them without
    the kernel); then the DAMSM similarity (K4) and its backward
    (K5 / K6) in fp32 at full width (R=289, D=256, L=8, lengths 1..8):
@@ -32,18 +31,17 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    the S it takes, ``splits``);
 3. serve full-width 256^2 images (GanConfig defaults, random weights from a
    seed, round-tripped through save_infer_state / load_infer_state) at
-   batch 64 in bf16, once through K2 and once through K3, with the launch
-   counters reset just before the shape's second call (the CUDA graph's
-   capture and first replay) and read just after: exactly 2 K1 launches
-   and 2 of the path's UpBlock kernel, both in the resident form, and
-   every other counter (the other path's UpBlock kernel's included) at 0;
+   batch 64 in bf16 through K2, with the launch counters reset just before
+   the shape's second call (the CUDA graph's capture and first replay) and
+   read just after: exactly 2 K1 launches and 2 of K2, both in the
+   resident form, and every other counter at 0;
    the sampler's counts 1 eager call, 1 capture, 1 replay; a third call,
    a replay, launching K1 twice and the UpBlock kernel twice by
    torch.profiler's count; then fp32 at batch 2, three calls (eager,
    captured, replayed), the first and the third against the port's own
    CPU run with the same weights and noise;
-4. throughput: img/s over 5 windows, through K2, through K3 and with the
-   kernels off, the three paths taking their windows in turns; then
+4. throughput: img/s over 5 windows, through K2 and with the kernels off,
+   the two paths taking their windows in turns; then
    ``utils.timing.device_timeit`` of the K2 path's call beside CUDA events
    around the same timed loop (it may not read more than 2% under them:
    its clock must stop after the work) and ``time_ms`` of the call;
@@ -108,7 +106,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    4 windows of 16 bare steps on the state it returns. Every loss moves
    and stays finite. Each call's launch counts must be exact: K4 once
    and K5 twice a pretrain or GAN step, K1 twice a GAN step, sample grid
-   or serving call, K2 twice a grid or serving call, K3 and K6 never. One
+   or serving call, K2 twice a grid or serving call, K6 never. One
    line per call: steps, seconds, steps/s through the loop with and
    without its checkpoint saves and grids (beside phase 6's bare-step
    steps/s, and for the 512-image run beside its own bare windows), each
@@ -432,9 +430,6 @@ def kernel_cases(torch, dtype, batch, seed):
         upblock_fused_eval,
         upblock_fused_eval_cuda,
     )
-    from attngan_torch.ops.cuda_upblock_packed import (
-        upblock_fused_eval_packed_cuda,
-    )
 
     g = torch.Generator("cuda").manual_seed(seed)
     dev = torch.device("cuda")
@@ -458,11 +453,9 @@ def kernel_cases(torch, dtype, batch, seed):
         bn_k = torch.rand(64, generator=g, device=dev) + 0.5
         bn_b = randn(64, scale=0.1)
         flops = 2 * batch * (2 * hw) ** 2 * 64 * (4 * 64)
-        for name, fn in (("upblock_fused_eval", upblock_fused_eval_cuda),
-                         ("upblock_fused_eval_packed",
-                          upblock_fused_eval_packed_cuda)):
-            cases.append((name, fn, upblock_fused_eval,
-                          (x, weight, bn_k, bn_b), flops, gen))
+        cases.append(("upblock_fused_eval", upblock_fused_eval_cuda,
+                      upblock_fused_eval, (x, weight, bn_k, bn_b), flops,
+                      gen))
     return cases
 
 
@@ -473,14 +466,12 @@ def check_kernels(torch, card_name: str) -> dict:
     the totals): it is the CUDA-core form of the UpBlock kernels."""
     from attngan_torch.core.config import GanConfig
     from attngan_torch.ops.cuda_attention import plan
-    from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda as k2
-    from attngan_torch.ops.cuda_upblock_packed import (
-        upblock_fused_eval_packed_cuda as k3,
+    from attngan_torch.ops.cuda_upblock import (
+        form as upblock_form,
+        upblock_fused_eval_cuda as k2,
     )
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    upblock_counts = lambda: (k2.launches, k2.resident_launches,
-                              k3.launches, k3.resident_launches)
     totals = {}
     for dtype, batch, timed in ((torch.float32, CHECK_BATCH, False),
                                 (torch.bfloat16, CHECK_BATCH, False),
@@ -492,12 +483,11 @@ def check_kernels(torch, card_name: str) -> dict:
         for name, fn, plain, args, flops, gen in kernel_cases(
                 torch, dtype, batch, seed=batch):
             before = fn.launches
-            ub_before = upblock_counts()
+            resident_before = k2.resident_launches
             got = fn(*args)
             torch.cuda.synchronize()
             fail_unless(fn.launches == before + 1,
                         f"{name} counted {fn.launches - before} launches")
-            bf16 = dtype == torch.bfloat16
             if name == "word_attention":
                 b, h, w, c = args[0].shape
                 form = {"form": "stream", "plan": plan(
@@ -505,20 +495,17 @@ def check_kernels(torch, card_name: str) -> dict:
                     sms)._asdict()}
             else:
                 # bf16 at Ci=64 -> Co=32 takes the resident form, fp32 the
-                # CUDA cores; K3 counts its own launches, K2's do not move
-                form = {"form": "resident" if bf16 else "cuda_cores"}
-                k3_path = name == "upblock_fused_eval_packed"
-                want_counts = (ub_before[0] + (not k3_path),
-                               ub_before[1] + (bf16 and not k3_path),
-                               ub_before[2] + k3_path,
-                               ub_before[3] + (bf16 and k3_path))
-                fail_unless(upblock_counts() == want_counts,
-                            f"{name} {tname}: (K2, K2 resident, K3, K3 "
-                            f"resident) launches {ub_before} -> "
-                            f"{upblock_counts()}, expected {want_counts}")
-                if k3_path:
-                    fail_unless(torch.equal(got, k2(*args)),
-                                f"{name} {gen} {tname}: not K2's bits")
+                # CUDA cores
+                form = {"form": upblock_form(dtype, args[0].shape[3],
+                                             args[1].shape[0] // 2)}
+                resident = k2.resident_launches - resident_before
+                expected = ("resident" if dtype == torch.bfloat16
+                            else "cuda_cores")
+                fail_unless(form["form"] == expected
+                            and resident == (expected == "resident"),
+                            f"{name} {tname}: the {form['form']} form, "
+                            f"{resident} resident launches; expected "
+                            f"{expected}")
             want = plain(*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -719,13 +706,9 @@ def kernel_counters() -> dict:
         damsm_similarity_bwd_tiled,
     )
     from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
-    from attngan_torch.ops.cuda_upblock_packed import (
-        upblock_fused_eval_packed_cuda,
-    )
 
     return {"word_attention": word_attention_cuda,
             "upblock_fused_eval": upblock_fused_eval_cuda,
-            "upblock_fused_eval_packed": upblock_fused_eval_packed_cuda,
             "damsm_similarity": damsm_similarity,
             "damsm_similarity_bwd_square": damsm_similarity_bwd_square,
             "damsm_similarity_bwd_tiled": damsm_similarity_bwd_tiled}
@@ -3690,9 +3673,9 @@ def device_kernel_counts(torch, fn) -> dict:
 
 
 def serve(torch, card_name: str) -> dict:
-    """Phase 3: the serving path through K2 and through K3, fp32 against
-    the CPU. Returns {kernel name: launches in its serving call} and the
-    samplers for the throughput phase."""
+    """Phase 3: the serving path through K2, fp32 against the CPU. Returns
+    {kernel name: launches in its serving call} and the samplers for the
+    throughput phase."""
     import numpy as np
 
     from attngan_torch.core.config import GanConfig, replace
@@ -3713,76 +3696,65 @@ def serve(torch, card_name: str) -> dict:
         state = InferState(cfg, VOCAB)
         calibrate_bn(torch, state, tokens[:16], lengths[:16])
         save_infer_state(path, state)
-        samplers = {mode: Sampler(load_infer_state(
-            path, replace(cfg, fused_upsample=mode), device="cuda"))
-            for mode in (True, "packed")}
-        samplers["plain"] = Sampler(load_infer_state(path, replace(
-            cfg, fused_attention=False, fused_upsample=False), device="cuda"))
+        samplers = {
+            True: Sampler(load_infer_state(path, cfg, device="cuda")),
+            "plain": Sampler(load_infer_state(path, replace(
+                cfg, fused_attention=False, fused_upsample=False),
+                device="cuda"))}
         cfg32 = replace(cfg, compute_dtype="float32")
         gpu32 = Sampler(load_infer_state(path, cfg32, device="cuda"))
         cpu32 = Sampler(load_infer_state(path, cfg32, device="cpu"),
                         device="cpu")
 
-    launches = {}
-    want = {True: ("word_attention", "upblock_fused_eval"),
-            "packed": ("word_attention", "upblock_fused_eval_packed")}
-    for mode in want:
-        sampler = samplers[mode]
-        gen = torch.Generator("cuda").manual_seed(1)
-        sampler.generate_from_tokens(tokens, lengths, generator=gen)  # warm
-        torch.cuda.synchronize()
-        upblocks = {name: counters[name] for name in
-                    ("upblock_fused_eval", "upblock_fused_eval_packed")}
-        for fn in counters.values():
-            fn.launches = 0
-        for fn in upblocks.values():
-            fn.resident_launches = 0
-        # the shape's second call: the capture, then its first replay
-        imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in counters.items()}
-        expect = {name: 2 if name in want[mode] else 0 for name in counters}
-        fail_unless(counts == expect,
-                    f"fused_upsample={mode!r}: launches {counts}, "
-                    f"expected {expect}")
-        paths = (sampler.eager_calls, sampler.captures, sampler.replays)
-        fail_unless(paths == (1, 1, 1), f"fused_upsample={mode!r}: eager "
-                    f"calls, captures, replays {paths}, expected (1, 1, 1)")
-        # a replay launches nothing from the host: its kernels, by CUPTI
-        replayed = device_kernel_counts(
-            torch, lambda: sampler.generate_from_tokens(tokens, lengths,
-                                                        generator=gen))
-        mine = {k: sum(n for name, n in replayed.items() if k in name)
-                for k in ("word_attention", "upblock")}
-        fail_unless(mine == {"word_attention": 2, "upblock": 2}
-                    and sampler.replays == 2,
-                    f"fused_upsample={mode!r}: a replay ran {mine} "
-                    f"({sampler.replays} replays)")
-        # the path's two UpBlocks (Ci=64 -> Co=32, bf16) take the
-        # resident-weight kernel, counted by the path's own wrapper only
-        resident = {name: fn.resident_launches
-                    for name, fn in upblocks.items()}
-        want_res = {name: 2 if name in want[mode] else 0 for name in upblocks}
-        fail_unless(resident == want_res,
-                    f"fused_upsample={mode!r}: resident launches {resident}, "
-                    f"expected {want_res}")
-        for name in want[mode]:
-            launches[name] = launches.get(name, 0) + counts[name]
-        std = float(imgs.float().std())
-        fail_unless(tuple(imgs.shape) == (BATCH, 256, 256, 3),
-                    f"image shape {tuple(imgs.shape)}")
-        fail_unless(bool(torch.isfinite(imgs).all()), "non-finite images")
-        fail_unless(float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
-                    "images outside [0, 1]")
-        fail_unless(std > 0.02, f"flat images (std {std})")
-        print(json.dumps({"phase": "serve", "fused_upsample": mode,
-                          "batch": BATCH, "shape": list(imgs.shape),
-                          "launches": counts,
-                          "resident_launches": resident,
-                          "replay_kernels": mine,
-                          "replay_kernels_all": sum(replayed.values()),
-                          "mean": float(imgs.float().mean()), "std": std}),
-              flush=True)
+    want = ("word_attention", "upblock_fused_eval")
+    sampler = samplers[True]
+    k2 = counters["upblock_fused_eval"]
+    gen = torch.Generator("cuda").manual_seed(1)
+    sampler.generate_from_tokens(tokens, lengths, generator=gen)  # warm
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    k2.resident_launches = 0
+    # the shape's second call: the capture, then its first replay
+    imgs = sampler.generate_from_tokens(tokens, lengths, generator=gen)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    expect = {name: 2 if name in want else 0 for name in counters}
+    fail_unless(counts == expect,
+                f"serving: launches {counts}, expected {expect}")
+    paths = (sampler.eager_calls, sampler.captures, sampler.replays)
+    fail_unless(paths == (1, 1, 1), f"serving: eager calls, captures, "
+                f"replays {paths}, expected (1, 1, 1)")
+    # a replay launches nothing from the host: its kernels, by CUPTI
+    replayed = device_kernel_counts(
+        torch, lambda: sampler.generate_from_tokens(tokens, lengths,
+                                                    generator=gen))
+    mine = {k: sum(n for name, n in replayed.items() if k in name)
+            for k in ("word_attention", "upblock")}
+    fail_unless(mine == {"word_attention": 2, "upblock": 2}
+                and sampler.replays == 2,
+                f"serving: a replay ran {mine} ({sampler.replays} replays)")
+    # the two UpBlocks at >= 64^2 (Ci=64 -> Co=32, bf16) take the
+    # resident-weight kernel
+    fail_unless(k2.resident_launches == 2,
+                f"serving: resident launches {k2.resident_launches}, "
+                f"expected 2")
+    launches = {name: counts[name] for name in want}
+    std = float(imgs.float().std())
+    fail_unless(tuple(imgs.shape) == (BATCH, 256, 256, 3),
+                f"image shape {tuple(imgs.shape)}")
+    fail_unless(bool(torch.isfinite(imgs).all()), "non-finite images")
+    fail_unless(float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+                "images outside [0, 1]")
+    fail_unless(std > 0.02, f"flat images (std {std})")
+    print(json.dumps({"phase": "serve", "fused_upsample": True,
+                      "batch": BATCH, "shape": list(imgs.shape),
+                      "launches": counts,
+                      "resident_launches": k2.resident_launches,
+                      "replay_kernels": mine,
+                      "replay_kernels_all": sum(replayed.values()),
+                      "mean": float(imgs.float().mean()), "std": std}),
+          flush=True)
 
     # fp32 on the card (kernels, TF32 off) against the port's CPU run, on
     # every stage and attention map
@@ -3816,16 +3788,15 @@ def serve(torch, card_name: str) -> dict:
 def throughput(torch, samplers, tokens, lengths, card_name: str) -> None:
     """Phase 4: img/s over 5 windows of 10 calls, per path. The paths take
     their windows in turns, in an order that rotates each round, so that a
-    drift of the card's clock or of the host's load falls on all three."""
-    paths = (("kernels_k2", True), ("kernels_k3", "packed"),
-             ("plain", "plain"))
+    drift of the card's clock or of the host's load falls on both."""
+    paths = (("kernels_k2", True), ("plain", "plain"))
     gen = torch.Generator("cuda").manual_seed(2)
     for _, mode in paths:
         samplers[mode].generate_from_tokens(tokens, lengths, generator=gen)
     torch.cuda.synchronize()
     rates = {label: [] for label, _ in paths}
     for round_ in range(5):
-        for label, mode in paths[round_ % 3:] + paths[:round_ % 3]:
+        for label, mode in paths[round_ % 2:] + paths[:round_ % 2]:
             start = time.perf_counter()
             for _ in range(10):
                 samplers[mode].generate_from_tokens(tokens, lengths,
@@ -3953,8 +3924,7 @@ def profile_calls(torch, fn, calls: int = 3) -> dict:
 
 def profile(torch, samplers, tokens, lengths, card_name: str) -> None:
     """--profile: 3 serving calls per path (``profile_calls``)."""
-    for label, mode in (("kernels_k3", "packed"), ("kernels_k2", True),
-                        ("plain", "plain")):
+    for label, mode in (("kernels_k2", True), ("plain", "plain")):
         sampler = samplers[mode]
         gen = torch.Generator("cuda").manual_seed(3)
         stats = profile_calls(torch, lambda: sampler.generate_from_tokens(
@@ -4330,9 +4300,6 @@ def main() -> int:
                            "attngan_tpu/ops/pallas_attention.py:51"),
         "upblock_fused_eval": ("attngan_torch/csrc/upblock.cu",
                                "attngan_tpu/ops/pallas_upblock.py:128"),
-        "upblock_fused_eval_packed": (
-            "attngan_torch/csrc/upblock.cu",
-            "attngan_tpu/ops/pallas_upblock_packed.py:124"),
         "damsm_similarity": ("attngan_torch/csrc/damsm_similarity.cu",
                              "attngan_tpu/ops/pallas_damsm.py:265"),
         "damsm_similarity_bwd_square": (

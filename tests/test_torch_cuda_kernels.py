@@ -10,10 +10,8 @@ Tolerances: fp32 at 1e-4 absolute (the same arithmetic in another summation
 order, TF32 off). bf16 outputs at 1e-2 absolute plus 2^-7 relative: one
 bf16 rounding step that a difference in fp32 summation order can flip.
 The bf16 UpBlock at Ci=64 -> Co=32 takes the resident-weight wgmma
-kernel, counted by ``upblock_fused_eval_cuda.resident_launches``; K3
-(``upblock_fused_eval_packed_cuda``) launches the same kernel, counted by
-its own ``resident_launches``. Word attention (K1) gives the same bits on
-a second launch.
+kernel, counted by ``upblock_fused_eval_cuda.resident_launches``. Word
+attention (K1) gives the same bits on a second launch.
 Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
 (fp32 end to end): sims within 1e-4 relative and 1e-5 absolute; gradients
 within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
@@ -66,7 +64,6 @@ from attngan_torch.ops.cuda_damsm import (
     damsm_similarity_bwd_tiled,
     plan,
 )
-from attngan_torch.ops.cuda_upblock_packed import upblock_fused_eval_packed_cuda
 from attngan_torch.ops.damsm_similarity import (
     similarity_bwd_plain,
     similarity_plain,
@@ -221,41 +218,7 @@ def test_upblock_other_dims_keep_the_warp_level_kernel(cuda, dtype, ci, co):
                                **TOL[dtype])
 
 
-def _upblock_counts():
-    return (upblock_fused_eval_cuda.launches,
-            upblock_fused_eval_cuda.resident_launches,
-            upblock_fused_eval_packed_cuda.launches,
-            upblock_fused_eval_packed_cuda.resident_launches)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w", [(2, 20, 36), (1, 64, 64)])
-def test_packed_kernel_matches_plain(cuda, dtype, b, h, w):
-    args = _upblock_args(cuda, b, h, w, 64, 32, dtype)
-    before = _upblock_counts()
-    got = upblock_fused_eval_packed_cuda(*args)
-    torch.cuda.synchronize()
-    # K3's own counters move (resident in bf16); K2's do not
-    resident = dtype == torch.bfloat16
-    assert _upblock_counts() == (before[0], before[1], before[2] + 1,
-                                 before[3] + resident)
-    torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
-                               **TOL[dtype])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w", [(64, 64, 64), (3, 18, 40)])
-def test_packed_gives_k2s_bits(cuda, dtype, b, h, w):
-    """K3 runs K2's kernel at these dims: the same bits on the same inputs."""
-    args = _upblock_args(cuda, b, h, w, 64, 32, dtype)
-    assert torch.equal(upblock_fused_eval_packed_cuda(*args),
-                       upblock_fused_eval_cuda(*args))
-
-
 def test_upblock_kernels_reject_what_they_do_not_take(cuda):
-    x, weight, k, b = _upblock_args(cuda, 1, 8, 8, 32, 32, torch.float32)
-    with pytest.raises(ValueError, match="Ci=64"):
-        upblock_fused_eval_packed_cuda(x, weight, k, b)
     x, weight, k, b = _upblock_args(cuda, 1, 8, 8, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="do not fit"):
         upblock_fused_eval_cuda(x, weight, k, b)
@@ -608,7 +571,7 @@ def test_tiny_loops_on_the_card_launch_exactly(cuda, tmp_path):
     """Both loops at tiny dims in fp32 on the card (8 images, batch 4: 2
     steps an epoch, 1 epoch; K2 takes gf = 4 in fp32 only): pretraining launches K4 once and K5 twice a step;
     GAN training K1 twice a step and twice a sample grid, K2 twice a grid,
-    K4 once and K5 twice a step; K3 and K6 never."""
+    K4 once and K5 twice a step; K6 never."""
     import numpy as np
 
     from attngan_torch.core.config import DamsmConfig, GanConfig, RunConfig
@@ -617,7 +580,7 @@ def test_tiny_loops_on_the_card_launch_exactly(cuda, tmp_path):
     from attngan_torch.train.loops import run_damsm_training, run_gan_training
 
     counters = {"k1": word_attention_cuda, "k2": upblock_fused_eval_cuda,
-                "k3": upblock_fused_eval_packed_cuda, "k4": damsm_similarity,
+                "k4": damsm_similarity,
                 "k5": damsm_similarity_bwd_square,
                 "k6": damsm_similarity_bwd_tiled}
     run_cfg = RunConfig(checkpoint_dir=str(tmp_path / "ckpt"),
@@ -634,15 +597,14 @@ def test_tiny_loops_on_the_card_launch_exactly(cuda, tmp_path):
                     compute_dtype="float32"),
         run_cfg, make_synthetic_dataset(8, res=64)))
     assert state.step == 2 and all(map(np.isfinite, history))
-    assert got == {"k1": 0, "k2": 0, "k3": 0, "k4": 2, "k5": 4, "k6": 0}
+    assert got == {"k1": 0, "k2": 0, "k4": 2, "k5": 4, "k6": 0}
     (_, state, losses), got = launches(lambda: run_gan_training(
         GanConfig(gf_dim=4, df_dim=4, emb_dim=16, seq_len=4, batch_size=4,
                   epochs=1, image_encoder="tiny", compute_dtype="float32"),
         run_cfg, make_synthetic_dataset(8, res=256)))
     assert state.step == 2
     assert all(np.isfinite(v).all() for v in losses.values())
-    assert got == {"k1": 2 * 2 + 2, "k2": 2, "k3": 0, "k4": 2, "k5": 4,
-                   "k6": 0}
+    assert got == {"k1": 2 * 2 + 2, "k2": 2, "k4": 2, "k5": 4, "k6": 0}
 
 
 # ---- the pretrain options

@@ -68,11 +68,11 @@ def test_glu_and_upsample_match_jax(rng):
 
 
 # 8^2 takes the JAX naive chain, 64^2 its dilated conv; in eval at 64^2 the
-# port takes the fused route (K2, or K3 at Ci=64 -> Co=32), which on the
-# CPU is the kernels' plain version
+# port takes the fused route (K2; Ci=64 -> Co=32 are the serving dims),
+# which on the CPU is the kernel's plain version
 @pytest.mark.parametrize("hw,ci,co,mode", [
     (8, 16, 8, True), (64, 8, 4, True), (64, 8, 4, False),
-    (64, 64, 32, "packed")])
+    (64, 64, 32, True)])
 @pytest.mark.parametrize("train", [False, True], ids=["eval_bn", "train_bn"])
 def test_upblock_matches_jax(rng, hw, ci, co, mode, train):
     x = rng.standard_normal((2, hw, hw, ci)).astype(np.float32)

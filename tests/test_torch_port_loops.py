@@ -352,6 +352,15 @@ def test_infer_takes_the_jax_model_flags(gan_checkpoint, tmp_path, capsys,
     assert read_png(paths[0]).shape == (256, 256, 3)
 
 
+@pytest.mark.parametrize("spelling,fused", [
+    ("pallas", True), ("packed", True), ("packed64", True), ("off", False)])
+def test_infer_maps_jax_upsample_routes_to_the_bool(spelling, fused):
+    """JAX's --fused-upsample routes all parse; on Hopper each but 'off'
+    is the one K2 route, GanConfig.fused_upsample True."""
+    cfg, _ = infer._config(infer.parse_args(["--fused-upsample", spelling]))
+    assert cfg.fused_upsample is fused
+
+
 @pytest.mark.parametrize("present", [True, False],
                          ids=["restores", "random_weights"])
 def test_infer_defaults_to_the_gan_checkpoint_dir(tmp_path, monkeypatch,

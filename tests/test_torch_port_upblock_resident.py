@@ -5,9 +5,10 @@ csrc/upblock.cu::upblock_resident_kernel runs only on the card (marker
 version). Its B operand and its work-unit plan are made in Python, in
 ops/cuda_upblock.py: the arranged weights must unpack to the parity weights
 exactly, and the persistent blocks' units must cover every output pixel
-exactly once, ragged edges included. K3 (ops/cuda_upblock_packed.py)
-launches the same kernel in bf16 and the CUDA-core kernel in fp32; which
-one is a pure function of the type (``packed_form``), checked here.
+exactly once, ragged edges included. Which of csrc/upblock.cu's kernels
+a launch takes is a pure function of the type and the dims (``form``), and
+what the kernels do not take is refused before a launch
+(``check_inputs``): both are checked here.
 """
 
 import numpy as np
@@ -19,18 +20,14 @@ from attngan_torch.ops.cuda_upblock import (
     RESIDENT_DIMS,
     UNIT_COLS,
     UNIT_ROWS,
+    check_inputs,
+    form,
     parity_weights,
     resident_grid,
     resident_units,
     resident_weights,
     upblock_fused_eval,
     upblock_fused_eval_cuda,
-)
-from attngan_torch.ops.cuda_upblock_packed import (
-    CI,
-    CO,
-    packed_form,
-    upblock_fused_eval_packed_cuda,
 )
 
 
@@ -101,37 +98,26 @@ def test_resident_counter_untouched_on_cpu(rng):
             upblock_fused_eval_cuda.resident_launches) == before
 
 
-# --- K3: served by the resident form in bf16 --------------------------------
+# --- which kernel, and what none of them takes ------------------------------
 
-@pytest.mark.parametrize("dtype,form", [(torch.bfloat16, "resident"),
-                                        (torch.float32, "cuda_cores")])
-def test_packed_route_by_dtype(dtype, form):
-    assert (CI, CO) in RESIDENT_DIMS       # K3's dims are the resident form's
-    assert packed_form(dtype, CI, CO, 64, 64) == form
-    assert packed_form(dtype, CI, CO, 128, 6) == form
-
-
-@pytest.mark.parametrize("ci,co,h,w", [(32, 32, 8, 8), (64, 16, 8, 8),
-                                       (128, 64, 8, 8), (64, 32, 8, 7),
-                                       (64, 32, 5, 8)])
-def test_packed_route_rejects_other_dims(ci, co, h, w):
-    for dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="Ci=64|even"):
-            packed_form(dtype, ci, co, h, w)
+@pytest.mark.parametrize("dtype,ci,co,want", [
+    (torch.bfloat16, 64, 32, "resident"), (torch.bfloat16, 128, 64, "mma"),
+    (torch.bfloat16, 32, 16, "mma"), (torch.float32, 64, 32, "cuda_cores"),
+    (torch.float32, 16, 8, "cuda_cores")])
+def test_form_by_type_and_dims(dtype, ci, co, want):
+    assert form(dtype, ci, co) == want
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_packed_cpu_path_leaves_every_counter_untouched(rng, dtype):
-    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 64)).astype(
-        np.float32)).to(dtype)
-    weight = torch.from_numpy(
-        (rng.standard_normal((64, 64, 3, 3)) * 0.05).astype(np.float32))
-    k, b = torch.ones(64), torch.zeros(64)
-    counters = lambda: (upblock_fused_eval_cuda.launches,
-                        upblock_fused_eval_cuda.resident_launches,
-                        upblock_fused_eval_packed_cuda.launches,
-                        upblock_fused_eval_packed_cuda.resident_launches)
-    before = counters()
-    assert torch.equal(upblock_fused_eval_packed_cuda(x, weight, k, b),
-                       upblock_fused_eval(x, weight, k, b))
-    assert counters() == before
+@pytest.mark.parametrize("dtype,ci,co,weight_ci,bn,match", [
+    (torch.bfloat16, 8, 8, 8, 16, "Ci=8, Co=8 do not fit"),
+    (torch.float32, 16, 2, 16, 4, "Ci=16, Co=2 do not fit"),
+    (torch.float32, 16, 8, 32, 16, "does not fit Ci=16"),
+    (torch.float32, 16, 8, 16, 8, r"BN constants must be \(16,\)")],
+    ids=["bf16_ci8", "co2", "weight_ci", "bn_length"])
+def test_check_inputs_refuses_what_no_kernel_takes(dtype, ci, co, weight_ci,
+                                                   bn, match):
+    x = torch.zeros((1, 4, 4, ci), dtype=dtype)
+    weight = torch.zeros((2 * co, weight_ci, 3, 3))
+    with pytest.raises(ValueError, match=match):
+        check_inputs("upblock_fused_eval_cuda", x, weight, torch.ones(bn),
+                     torch.zeros(bn))
