@@ -20,6 +20,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def to_device(x, device: str | torch.device,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` (a tensor, an array or a list) as a tensor on ``device``, or
+    copied into ``out`` there, with no blocking copy: host data bound for a
+    CUDA device goes through pinned memory, which PyTorch's caching host
+    allocator keeps until the copy has run, so the host need not wait."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda and t.device.type == "cpu":
+        t = t.pin_memory()
+    if out is not None:
+        return out.copy_(t, non_blocking=cuda)
+    return t.to(device, non_blocking=cuda)
+
+
 def compute_dtype(name: str | None) -> torch.dtype:
     """``GanConfig.compute_dtype`` string -> torch dtype ("" = float32)."""
     if not name:

@@ -12,12 +12,22 @@ of ranks): the mask is drawn for the whole global batch and the rank keeps
 its rows, so that n ranks draw what one process draws. The JAX module has one bias per direction: ``bias_hh`` stays zero
 and takes no gradient, so that the trained bias is ``bias_ih`` alone.
 
-``forward_masked`` is the same eval-mode function in a form that
-``torch.export`` traces (infer/export.py): packing needs the lengths on
-the host and the empty-caption branch reads data, so it runs JAX's form
-instead, a scan over the fixed ``seq_len`` with the carry frozen and the
-output zeroed at padded steps, the backward direction over each row's
-words reversed. The live paths keep ``nn.LSTM``.
+Three forms compute the eval-mode function, and ``forward`` picks one by
+what its input shows:
+
+* K9 (ops/cuda_bilstm.py, csrc/bilstm.cu): CUDA tensors, eval mode, grad
+  off, 128 units a direction in fp32. The embedding, one GEMM a direction
+  for the input projection, and one launch for both directions'
+  recurrence, which reads the lengths where they lie: no host copy, no
+  blocking call, so serving captures it in its CUDA graph
+  (infer/sampler.py).
+* ``nn.LSTM`` over the packed captions: everything else (training, the
+  CPU, other widths). Packing needs the lengths on the host.
+* ``forward_masked``, K9's plain version and the form that
+  ``torch.export`` traces (infer/export.py): JAX's masked scan over the
+  fixed ``seq_len``, the carry frozen and the output zeroed at padded
+  steps, the backward direction over each row's words reversed; no host
+  lengths, no branch on data.
 """
 
 from __future__ import annotations
@@ -27,6 +37,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from attngan_torch.core.runtime import to_device
+from attngan_torch.ops import cuda_bilstm
 
 
 class BiLSTMEncoder(nn.Module):
@@ -48,10 +61,26 @@ class BiLSTMEncoder(nn.Module):
             nn.init.zeros_(bias)
             bias.requires_grad_(False)
 
-    def forward(self, captions: torch.Tensor, lengths: torch.Tensor,
+    def kernel_route(self, device: torch.device) -> bool:
+        """Whether ``forward`` on ``device`` takes K9: a CUDA device, eval
+        mode, grad off, and a width the kernel is built for."""
+        return (torch.device(device).type == "cuda" and not self.training
+                and not torch.is_grad_enabled()
+                and cuda_bilstm.takes_width(self.lstm.hidden_size,
+                                            self.lstm.weight_hh_l0.dtype))
+
+    def forward(self, captions: torch.Tensor, lengths,
                 generator: Optional[torch.Generator] = None,
                 shard: Tuple[int, int] = (0, 1)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.kernel_route(captions.device):
+            gates, w_hh, b_ih, b_hh = self._projected(captions)
+            return cuda_bilstm.bilstm_cuda(
+                gates, to_device(lengths, captions.device), w_hh, b_ih, b_hh)
+        return self._forward_packed(captions, torch.as_tensor(lengths),
+                                    generator, shard)
+
+    def _forward_packed(self, captions, lengths, generator, shard):
         seq_len = captions.shape[1]
         x = self.embedding(captions.long())
         if self.training and self.dropout > 0:
@@ -77,41 +106,20 @@ class BiLSTMEncoder(nn.Module):
             sent = sent.masked_fill(empty[:, None], 0.0)
         return words, sent
 
+    def _projected(self, captions: torch.Tensor):
+        """K9's operands but the lengths: ((forward, backward) input
+        projections x W_ih^T (B, L, 4H)), and the (forward, backward)
+        W_hh, bias_ih and bias_hh."""
+        x = self.embedding(captions.long())                 # (B, L, E)
+        w_ih, w_hh, b_ih, b_hh = (
+            tuple(getattr(self.lstm, f"{name}_l0{suffix}")
+                  for suffix in ("", "_reverse"))
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+        return tuple(x @ w.t() for w in w_ih), w_hh, b_ih, b_hh
+
     def forward_masked(self, captions: torch.Tensor, lengths: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``forward``'s eval-mode outputs, traceable: no host lengths, no
-        branch on data."""
-        x = self.embedding(captions.long())                 # (B, L, E)
-        seq_len = x.shape[1]
-        steps = torch.arange(seq_len, device=x.device)
-        lengths = lengths.to(x.device, torch.int64)[:, None]
-        valid = steps[None, :] < lengths                    # (B, L)
-        # each row's words reversed, its padding left in place (an
-        # involution: it also puts the reversed outputs back)
-        order = torch.where(valid, lengths - 1 - steps[None, :],
-                            steps[None, :])[..., None]
-
-        def run(x: torch.Tensor, suffix: str):
-            lstm = self.lstm
-            w_hh = getattr(lstm, "weight_hh_l0" + suffix)
-            gates_in = (x @ getattr(lstm, "weight_ih_l0" + suffix).t()
-                        + getattr(lstm, "bias_ih_l0" + suffix)
-                        + getattr(lstm, "bias_hh_l0" + suffix))
-            h = x.new_zeros((x.shape[0], w_hh.shape[1]))
-            c = torch.zeros_like(h)
-            outputs = []
-            for t in range(seq_len):
-                i, f, g, o = (gates_in[:, t] + h @ w_hh.t()).chunk(4, dim=-1)
-                c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-                h_new = torch.sigmoid(o) * torch.tanh(c_new)
-                keep = valid[:, t, None]
-                h = torch.where(keep, h_new, h)
-                c = torch.where(keep, c_new, c)
-                outputs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
-            return torch.stack(outputs, dim=1), h
-
-        fwd, h_fwd = run(x, "")
-        reverse = order.expand(-1, -1, x.shape[-1])
-        bwd, h_bwd = run(x.gather(1, reverse), "_reverse")
-        bwd = bwd.gather(1, order.expand(-1, -1, bwd.shape[-1]))
-        return torch.cat([fwd, bwd], dim=-1), torch.cat([h_fwd, h_bwd], dim=-1)
+        branch on data (K9's plain version)."""
+        gates, w_hh, b_ih, b_hh = self._projected(captions)
+        return cuda_bilstm.bilstm(gates, lengths, w_hh, b_ih, b_hh)

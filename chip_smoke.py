@@ -63,6 +63,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    sites a call, and in fp32 at odd shapes; the serving sampler's eager
    call, capture and replay (K8 launched 13, 13 and 0 times by the host,
    the replay's 13 by torch.profiler's count);
+   4e. the text encoder's masked BiLSTM (``bilstm_phase``, K9) against its
+   plain version in fp32 at the serving cells' (rows, seq), (64, 5),
+   (1, 18) and (64, 18), each batch with lengths 0 and L, timed beside its
+   bound (bytes at 3.35 TB/s or its fp32 operations at 67 TFLOP/s), its
+   plain version, the whole eval encoder on K9's route (embedding, the two
+   input GEMMs, K9: ``encoder_ms``) and on cuDNN's packed path with its
+   host syncs (``cudnn_ms``, events around each call), with the rows a
+   cluster takes; the serving sampler's eager call, capture and replay at
+   batch 64 (K9 launched 1, 1 and 0 times by the host, the replay's 1 by
+   torch.profiler's count);
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -238,7 +248,7 @@ TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
 NO_SPILL = ("word_attention_stream_kernel", "upblock_resident_kernel",
             "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel",
-            "bn_epilogue_kernel")
+            "bn_epilogue_kernel", "bilstm_kernel")
 L2_BYTES = 50 * 2 ** 20
 # device_timeit's seconds a call may read at most this share under the
 # CUDA events around the same timed loop
@@ -4198,6 +4208,97 @@ def bn_epilogue_phase(torch, card_name: str) -> tuple:
     return {"bn_epilogue": total}, {"bn_epilogue": rises[1]}
 
 
+# the serving cells' (rows, seq) at K9: lsun-serve-b64, cub-serve-b1,
+# dfgan-serve-b64; the vocabulary of the CUB cells
+BILSTM_SHAPES = ((64, 5), (1, 18), (64, 18))
+CUB_VOCAB = 5450
+
+
+def bilstm_phase(torch, card_name: str) -> tuple:
+    """Phase 4e. Returns ({"bilstm": K9's line at (64, 18), the largest
+    error over the three shapes}, {"bilstm": launches in the sampler's
+    capture call})."""
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.infer.sampler import InferState, Sampler
+    from attngan_torch.models.rnn_encoder import BiLSTMEncoder
+    from attngan_torch.ops import cuda_bilstm
+    from attngan_torch.ops.cuda_bilstm import bilstm, bilstm_cuda
+
+    g = torch.Generator("cuda").manual_seed(24)
+    torch.manual_seed(0)
+    rnn = BiLSTMEncoder(CUB_VOCAB, hidden_dim=256).cuda().eval()
+    total = {"max_abs_err": 0.0, "form": "cluster"}
+    for rows, seq in BILSTM_SHAPES:
+        lengths = torch.randint(1, seq + 1, (rows,), generator=g,
+                                device="cuda").cpu()
+        lengths[0] = seq
+        lengths[-1] = 0 if rows > 1 else seq
+        tokens = torch.randint(1, CUB_VOCAB, (rows, seq), generator=g,
+                               device="cuda")
+        on_card = lengths.cuda()
+        with torch.no_grad():
+            args = rnn._projected(tokens)
+            gates, rest = args[0], args[1:]
+            before = bilstm_cuda.launches
+            got = bilstm_cuda(gates, on_card, *rest)
+            torch.cuda.synchronize()
+            counted = bilstm_cuda.launches - before
+            fail_unless(counted == 1, f"bilstm counted {counted}")
+            want = bilstm(gates, on_card, *rest)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=0.0)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ms = time_ms(lambda: bilstm_cuda(gates, on_card, *rest))
+            plain_ms = time_ms(lambda: bilstm(gates, on_card, *rest))
+            encoder_ms = time_ms(lambda: rnn(tokens, on_card))
+            cudnn_ms = time_ms(lambda: rnn._forward_packed(
+                tokens, lengths, None, (0, 1)))
+        # each input byte read once, each output written once; the steps
+        # these lengths need
+        moved = nbytes(*gates, *got, *(t for pair in rest for t in pair),
+                       on_card)
+        flops = 2 * 2 * int(lengths.sum()) * 4 * 128 * 128
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        line = {"phase": "bilstm", "step": "k9", "rows": rows, "seq": seq,
+                "rows_per_cluster": cuda_bilstm.rows_per_cluster(rows),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "encoder_ms": encoder_ms, "cudnn_ms": cudnn_ms,
+                "bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
+                "flops_ms": flops_ms, "bytes": moved, "card": card_name}
+        print(json.dumps(line), flush=True)
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        if (rows, seq) == BILSTM_SHAPES[-1]:
+            total.update({k: line[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bytes_ms", "flops_ms",
+                "encoder_ms", "cudnn_ms")})
+
+    # the serving path at batch 64: eager call, capture, replay
+    torch.manual_seed(0)
+    sampler = Sampler(InferState(GanConfig(), VOCAB), device="cuda")
+    lengths = torch.randint(1, SEQ_LEN + 1, (BATCH,), generator=g,
+                            device="cuda").cpu()
+    tokens = torch.randint(1, VOCAB, (BATCH, SEQ_LEN), generator=g,
+                           device="cuda")
+    rises = []
+    for _ in range(3):                              # eager, capture, replay
+        before = bilstm_cuda.launches
+        sampler.generate_from_tokens(tokens, lengths)
+        torch.cuda.synchronize()
+        rises.append(bilstm_cuda.launches - before)
+    fail_unless(rises == [1, 1, 0], f"K9 launches {rises}, expected "
+                f"[1, 1, 0]")
+    replayed = device_kernel_counts(
+        torch, lambda: sampler.generate_from_tokens(tokens, lengths))
+    k9 = sum(n for k, n in replayed.items() if "bilstm" in k)
+    fail_unless(k9 == 1, f"a replay ran K9 {k9} times")
+    print(json.dumps({"phase": "bilstm", "step": "serve", "batch": BATCH,
+                      "k9_launches": rises, "replay_k9": k9,
+                      "replay_kernels": sum(replayed.values()),
+                      "totals": total, "card": card_name}), flush=True)
+    return {"bilstm": total}, {"bilstm": rises[1]}
+
+
 def main() -> int:
     import torch
 
@@ -4252,6 +4353,9 @@ def main() -> int:
     bn_totals, bn_launches = bn_epilogue_phase(torch, card_name)
     totals.update(bn_totals)
     lap("bn_epilogue")
+    bilstm_totals, bilstm_launches = bilstm_phase(torch, card_name)
+    totals.update(bilstm_totals)
+    lap("bilstm")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
@@ -4285,13 +4389,13 @@ def main() -> int:
     lap("last_modules")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     # launches summed over every path: serving, DF-GAN, the BN epilogue's
-    # serving call, pretrain, GAN step, loops, captioner, pretrain
-    # options, data parallel (every rank's), side tiers, the last modules
-    # (MFU and the tools)
-    for counted in (dfgan_launches, bn_launches, damsm_launches,
-                    gan_launches, loop_launches, captioner_launches,
-                    options_launches, dp_launches, side_launches,
-                    last_launches):
+    # and the BiLSTM's serving calls, pretrain, GAN step, loops,
+    # captioner, pretrain options, data parallel (every rank's), side
+    # tiers, the last modules (MFU and the tools)
+    for counted in (dfgan_launches, bn_launches, bilstm_launches,
+                    damsm_launches, gan_launches, loop_launches,
+                    captioner_launches, options_launches, dp_launches,
+                    side_launches, last_launches):
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -4311,6 +4415,8 @@ def main() -> int:
         "dfblock": ("attngan_torch/csrc/dfblock.cu", None),   # DF-GAN's
         # XLA fuses the eval BatchNorm epilogue on the TPU
         "bn_epilogue": ("attngan_torch/csrc/bn_epilogue.cu", None),
+        # the JAX package scans the BiLSTM in XLA
+        "bilstm": ("attngan_torch/csrc/bilstm.cu", None),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -4324,8 +4430,8 @@ def main() -> int:
             "bound_by": "bytes" if t["bytes_ms"] >= t["flops_ms"]
             else "operations",
             "library_ms": None,
-            **{k: t[k] for k in ("chain_ms", "form", "tc_bound_ms")
-               if k in t}})
+            **{k: t[k] for k in ("chain_ms", "form", "tc_bound_ms",
+                                 "encoder_ms", "cudnn_ms") if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name, flush=True)
     print(json.dumps({"ok": True, "device": {

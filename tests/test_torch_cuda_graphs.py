@@ -18,8 +18,9 @@ one; the file imports no JAX:
 - Weights loaded in place (``load_state_dict``) reach the next replay;
   weights moved elsewhere drop the graphs, and the next call runs eagerly.
 - The kernel wrappers' launch counters count the host's launches: K1 2,
-  K2 2 (the resident form) on the eager call and on the capture, nothing
-  on a replay. The replay's own launches are measured instead:
+  K2 2 (the resident form) and K9 1 (the text encoder, inside the graph
+  since it reads the lengths on the card) on the eager call and on the
+  capture, nothing on a replay. The replay's own launches are measured instead:
   under torch.profiler (CUPTI) a replayed call runs the eager call's
   kernels, by name and count (memsets and copies aside), K1 and K2 twice.
 """
@@ -36,6 +37,7 @@ from attngan_torch.core.config import GanConfig
 from attngan_torch.infer.sampler import InferState, Sampler
 from attngan_torch.ops.int8 import intercepting
 from attngan_torch.ops.cuda_attention import word_attention_cuda
+from attngan_torch.ops.cuda_bilstm import bilstm_cuda
 from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
 
 pytestmark = pytest.mark.cuda
@@ -177,7 +179,8 @@ def test_weights_moved_elsewhere_drop_the_graphs(cuda):
 
 def counters() -> list:
     return [upblock_fused_eval_cuda.resident_launches,
-            upblock_fused_eval_cuda.launches, word_attention_cuda.launches]
+            upblock_fused_eval_cuda.launches, word_attention_cuda.launches,
+            bilstm_cuda.launches]
 
 
 @pytest.mark.parametrize("rows,seq_len", SHAPES)
@@ -189,8 +192,8 @@ def test_launch_counters_count_the_hosts_launches(cuda, rows, seq_len):
         start = counters()
         sampler.generate_stages(*b)
         rises.append([c - s for c, s in zip(counters(), start)])
-    # K2 resident, K2, K1: a replay launches nothing from the host
-    assert rises == [[2, 2, 2], [2, 2, 2], [0, 0, 0]]
+    # K2 resident, K2, K1, K9: a replay launches nothing from the host
+    assert rises == [[2, 2, 2, 1], [2, 2, 2, 1], [0, 0, 0, 0]]
     assert sampler.replays == 2
 
 
