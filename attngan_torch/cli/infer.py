@@ -16,10 +16,13 @@ stage, or every stage (--all-stages) and the word-attention strips
 (--save-attention), optionally after swapping cluster tokens between the
 first two captions (--swap).
 
---generator dfgan serves DF-GAN's generator (models/dfgan.py: one 256^2
-stage, no attention maps, so no --save-attention or --export) through the
-same sampler; a checkpoint records its family, and one written before the
-field existed holds AttnGAN's.
+--generator dmgan serves DM-GAN's generator (models/dmgan.py: AttnGAN's
+three stages, a dynamic memory in place of word attention, its memory
+addressing maps saved by --save-attention; no --export), --generator
+dfgan DF-GAN's (models/dfgan.py: one 256^2 stage, no attention maps, so
+no --save-attention or --export), through the same sampler; a checkpoint
+records its family, and one written before the field existed holds
+AttnGAN's.
 
 Every command line of JAX's ``cli.infer`` parses: --df-dim and
 --image-encoder, which the generator does not read, are checked against
@@ -101,9 +104,11 @@ def parse_args(argv=None):
     # model shapes: default to the checkpoint's, else GanConfig's
     p.add_argument("--generator", default=None, choices=list(GENERATORS),
                    help="the generator family: 'attngan' (3 stages, word "
-                        "attention; the default) or 'dfgan' (DF-GAN's one "
-                        "256^2 stage, text fused into every block); "
-                        "checked against the checkpoint's recorded value")
+                        "attention; the default), 'dmgan' (DM-GAN's 3 "
+                        "stages, a dynamic memory of the words) or 'dfgan' "
+                        "(DF-GAN's one 256^2 stage, text fused into every "
+                        "block); checked against the checkpoint's recorded "
+                        "value")
     p.add_argument("--num-stages", type=int, default=None, choices=[1, 2, 3])
     p.add_argument("--gf-dim", type=int, default=None)
     p.add_argument("--df-dim", type=int, default=None,

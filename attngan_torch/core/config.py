@@ -104,7 +104,10 @@ class GanConfig:
     fused_similarity: bool = True
     # the generator family that InferState builds (infer/sampler.py's
     # GENERATORS): "attngan", the 3-stage attentional generator
-    # (models/generator.py), or "dfgan", DF-GAN's one-stage 256^2 generator
+    # (models/generator.py); "dmgan", DM-GAN's 3-stage generator, whose
+    # next stages read a dynamic memory of the words instead of attending
+    # to them (models/dmgan.py: gf_dim is its N_r, 2 gf_dim its memory
+    # width); or "dfgan", DF-GAN's one-stage 256^2 generator
     # (models/dfgan.py: gf_dim is its nf, z_dim + emb_dim its condition;
     # cond_dim and num_stages are not read). The GAN step trains "attngan"
     # only.

@@ -44,6 +44,21 @@
 //   shapes) it keeps its chunk of every word in registers.
 // L is compiled in (up to 8 words; 16 or 32 with the padding masked), so
 // the pixel loop has no branch on L.
+//
+// The memory form (memread_stream_kernel, DM-GAN's memory read and
+// response gate; its plain version is ops/attention.py::memory_read) is a
+// second instantiation of the same streaming body (kMem):
+//   scores = r . key^T, unscaled, -1e9 at padded words
+//   attn   = softmax over the L words           (fp32, written as K1's)
+//   o      = attn . value                       (fp32; attn not rounded)
+//   g      = sigmoid(w_g[:C] . r + w_g[C:] . o + b_g)
+//   out    = [r'; r'],  r' = o g + r (1 - g)    (rounded once to T)
+// The key and the value rows are staged apart (two fp32 tables), w_g and
+// b_g once a block beside them. A lane holds one chunk of its pixel's row
+// (the wrapper takes C / V == G), so after the value product it holds its
+// chunk of r (from the tile in the ring) and of o: its partial gate dot
+// is finished by __shfl_xor across the G lanes, and it writes its chunk of
+// r' into both halves of the (B, P, 2C) output.
 
 #include <math.h>
 #include <stdint.h>
@@ -117,19 +132,22 @@ __host__ __device__ inline size_t round_up(size_t x, size_t a) {
 
 // Shared memory of one block, in bytes from its start (the Python mirror
 // is ops/cuda_attention.py::smem_bytes): the stages' mbarriers, the
-// image's words (fp32, `words` rows: L padded to the kernel's kWords) and
+// image's words (fp32, `words` rows: L padded to the kernel's kWords; the
+// memory form's keys, then its values and the gate's 2C + 1 floats) and
 // mask flags, two (L, ld) attention tiles, the ring.
 struct Layout {
   int ld;              // floats between word rows of an attention tile
   size_t stage_bytes;  // bytes between ring stages
-  size_t w_off, valid_off, attn_off, ring_off, total;
+  size_t w_off, v_off, gate_off, valid_off, attn_off, ring_off, total;
   __host__ __device__ Layout(int C, int L, int words, int elem, int pt,
-                             int g, int stages) {
+                             int g, int stages, bool mem = false) {
     const int ppw = 32 / g;                 // pixels per warp and pass
     ld = pt + (ppw < 4 ? 4 : ppw);          // rows in other banks
     stage_bytes = round_up((size_t)pt * C * elem, 128);
     w_off = 128;
-    valid_off = w_off + round_up((size_t)words * C * 4, 16);
+    v_off = w_off + round_up((size_t)words * C * 4, 16);
+    gate_off = v_off + (mem ? round_up((size_t)words * C * 4, 16) : 0);
+    valid_off = gate_off + (mem ? round_up((size_t)(2 * C + 1) * 4, 16) : 0);
     attn_off = round_up(valid_off + (size_t)words * 4, 128);
     ring_off = round_up(attn_off + (size_t)2 * L * ld * 4, 128);
     total = ring_off + (size_t)stages * stage_bytes;
@@ -234,23 +252,27 @@ __device__ __forceinline__ float rcp(float x) {   // 1/x for x >= 1
 // kWords: L itself for L <= 8, else 16 or 32 with the words past L zero
 // and masked. The pixel loop then has no branch on L: every word's loads
 // and products are straight-line code the compiler can schedule together.
-template <typename T, int V, int kWords>
-__global__ void __launch_bounds__(kThreads, 2)
-word_attention_stream_kernel(const T* __restrict__ images,
-                             const T* __restrict__ words,
-                             const int* __restrict__ mask, T* __restrict__ ctx,
-                             float* __restrict__ attn, int B, int P, int C,
-                             int L, int pt, int g, int stages, float scale) {
+// kMem: the memory form (values, gate_w, gate_b read; ctx is the (B, P,
+// 2C) output); else K1 (words are key and value; the three are null).
+template <typename T, int V, int kWords, bool kMem>
+__device__ __forceinline__ void stream_body(
+    const T* __restrict__ images, const T* __restrict__ words,
+    const T* __restrict__ values, const int* __restrict__ mask,
+    const float* __restrict__ gate_w, const float* __restrict__ gate_b,
+    T* __restrict__ ctx, float* __restrict__ attn, int B, int P, int C,
+    int L, int pt, int g, int stages, float scale) {
   // pixels a lane takes in one pass: two, for independent work between
   // the waits on shared memory, shuffles and MUFU, where registers allow
   constexpr int kPix = kWords <= 8 ? 2 : 1;
   // a lane keeps its chunk of every word in registers when it has one
-  // chunk (C / V == g, the serving shapes) and they fit
-  constexpr bool kRegWords = kWords * V <= 40;
+  // chunk (C / V == g, the serving shapes) and they fit (K1 only)
+  constexpr bool kRegWords = !kMem && kWords * V <= 40;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(C, L, kWords, sizeof(T), pt, g, stages);
+  const Layout lay(C, L, kWords, sizeof(T), pt, g, stages, kMem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   float* w_s = reinterpret_cast<float*>(smem + lay.w_off);
+  float* v_s = reinterpret_cast<float*>(smem + lay.v_off);
+  float* gate_s = reinterpret_cast<float*>(smem + lay.gate_off);
   int* valid_s = reinterpret_cast<int*>(smem + lay.valid_off);
   float* attn_s = reinterpret_cast<float*>(smem + lay.attn_off);
   unsigned char* ring = smem + lay.ring_off;
@@ -283,6 +305,11 @@ word_attention_stream_kernel(const T* __restrict__ images,
     const T* wb = words + (size_t)b * L * C;
     for (int i = threadIdx.x - 32; i < kWords * C; i += kThreads - 32)
       w_s[i] = i < L * C ? to_f(wb[i]) : 0.f;
+    if constexpr (kMem) {
+      const T* vb = values + (size_t)b * L * C;
+      for (int i = threadIdx.x - 32; i < kWords * C; i += kThreads - 32)
+        v_s[i] = i < L * C ? to_f(vb[i]) : 0.f;
+    }
     for (int i = threadIdx.x - 32; i < kWords; i += kThreads - 32)
       valid_s[i] = i < L && mask[(size_t)b * L + i] != 0;
   };
@@ -316,6 +343,11 @@ word_attention_stream_kernel(const T* __restrict__ images,
   if (u0 < u1) {
     cur_b = Unit(u0, P, pt, tiles, row).b;
     stage_words(cur_b);
+  }
+  if constexpr (kMem) {           // the gate's weights and bias, once
+    if (threadIdx.x >= 32)
+      for (int i = threadIdx.x - 32; i <= 2 * C; i += kThreads - 32)
+        gate_s[i] = i < 2 * C ? gate_w[i] : gate_b[0];
   }
   if (threadIdx.x == 0)
     for (int k = 0; k < stages && u0 + k < u1; ++k)
@@ -415,7 +447,8 @@ word_attention_stream_kernel(const T* __restrict__ images,
         for (int l = 0; l < kWords; ++l, r += lay.ld) {
           sc[p][l] *= inv;
           if (active[p] && ((own >> l) & 1)) *r = sc[p][l];
-          sc[p][l] = to_f(from_f<T>(sc[p][l]));  // the TPU's cast to T
+          if constexpr (!kMem)
+            sc[p][l] = to_f(from_f<T>(sc[p][l]));  // the TPU's cast to T
         }
       }
       for (int ch = j; ch < nc; ch += g) {
@@ -428,7 +461,11 @@ word_attention_stream_kernel(const T* __restrict__ images,
         for (int l = 0; l < kWords; ++l) {
 #pragma unroll
           for (int i = 0; i < V; i += 4) {
-            const float4 wv = fetch(l, ch, i);
+            float4 wv;
+            if constexpr (kMem)
+              wv = *reinterpret_cast<const float4*>(v_s + l * C + ch * V + i);
+            else
+              wv = fetch(l, ch, i);
 #pragma unroll
             for (int p = 0; p < kPix; ++p) {
               acc[p][i] = fmaf(sc[p][l], wv.x, acc[p][i]);
@@ -438,11 +475,46 @@ word_attention_stream_kernel(const T* __restrict__ images,
             }
           }
         }
+        if constexpr (kMem) {
+          // the response gate: this lane's chunk of r (still in the ring)
+          // and of o, its partial dot finished across the pixel's G lanes
+          // (every lane runs this loop once: C / V == G)
+          float x[kPix][V], z[kPix];
 #pragma unroll
-        for (int p = 0; p < kPix; ++p)
-          if (active[p])
-            Chunk<T, V>::store(
-                ctx + ((size_t)t.b * P + t.p0 + q[p]) * C + ch * V, acc[p]);
+          for (int p = 0; p < kPix; ++p) {
+            Chunk<T, V>::load(tile + (size_t)min(q[p], t.n - 1) * C + ch * V,
+                              x[p]);
+            z[p] = 0.f;
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              z[p] = fmaf(gate_s[ch * V + i], x[p][i], z[p]);
+              z[p] = fmaf(gate_s[C + ch * V + i], acc[p][i], z[p]);
+            }
+          }
+          for (int off = g >> 1; off > 0; off >>= 1) {
+#pragma unroll
+            for (int p = 0; p < kPix; ++p)
+              z[p] += __shfl_xor_sync(0xffffffffu, z[p], off);
+          }
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            const float gr = 1.f / (1.f + __expf(-(z[p] + gate_s[2 * C])));
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              acc[p][i] = acc[p][i] * gr + x[p][i] * (1.f - gr);
+            if (active[p]) {
+              T* o = ctx + ((size_t)t.b * P + t.p0 + q[p]) * 2 * C + ch * V;
+              Chunk<T, V>::store(o, acc[p]);
+              Chunk<T, V>::store(o + C, acc[p]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < kPix; ++p)
+            if (active[p])
+              Chunk<T, V>::store(
+                  ctx + ((size_t)t.b * P + t.p0 + q[p]) * C + ch * V, acc[p]);
+        }
       }
     };
     const int step = kPix * kWarps * ppw;
@@ -500,31 +572,77 @@ word_attention_stream_kernel(const T* __restrict__ images,
 }
 
 template <typename T, int V, int kWords>
-int launch(const void* images, const void* words, const int* mask, void* ctx,
-           float* attn, int B, int P, int C, int L, int pt, int g, int stages,
-           int grid, float scale, cudaStream_t stream) {
-  const Layout lay(C, L, kWords, sizeof(T), pt, g, stages);
+__global__ void __launch_bounds__(kThreads, 2)
+word_attention_stream_kernel(const T* __restrict__ images,
+                             const T* __restrict__ words,
+                             const int* __restrict__ mask, T* __restrict__ ctx,
+                             float* __restrict__ attn, int B, int P, int C,
+                             int L, int pt, int g, int stages, float scale) {
+  stream_body<T, V, kWords, false>(images, words, nullptr, mask, nullptr,
+                                   nullptr, ctx, attn, B, P, C, L, pt, g,
+                                   stages, scale);
+}
+
+// The memory form: unscaled (scale 1), out (B, P, 2C).
+template <typename T, int V, int kWords>
+__global__ void __launch_bounds__(kThreads, 2)
+memread_stream_kernel(const T* __restrict__ images, const T* __restrict__ key,
+                      const T* __restrict__ value,
+                      const int* __restrict__ mask,
+                      const float* __restrict__ gate_w,
+                      const float* __restrict__ gate_b, T* __restrict__ out,
+                      float* __restrict__ attn, int B, int P, int C, int L,
+                      int pt, int g, int stages) {
+  stream_body<T, V, kWords, true>(images, key, value, mask, gate_w, gate_b,
+                                  out, attn, B, P, C, L, pt, g, stages, 1.f);
+}
+
+// One launch's operands; values, gate_w and gate_b are the memory form's.
+struct Args {
+  const void *images, *words, *values;
+  const int* mask;
+  const float *gate_w, *gate_b;
+  void* ctx;
+  float* attn;
+  int B, P, C, L, pt, g, stages, grid;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int V, int kWords, bool kMem>
+int launch(const Args& a) {
+  const Layout lay(a.C, a.L, kWords, sizeof(T), a.pt, a.g, a.stages, kMem);
   if (lay.total > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = word_attention_stream_kernel<T, V, kWords>;
+  const void* kernel;
+  if constexpr (kMem)
+    kernel = (const void*)memread_stream_kernel<T, V, kWords>;
+  else
+    kernel = (const void*)word_attention_stream_kernel<T, V, kWords>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, lay.total, stream>>>(
-      static_cast<const T*>(images), static_cast<const T*>(words), mask,
-      static_cast<T*>(ctx), attn, B, P, C, L, pt, g, stages, scale);
+  const T* images = static_cast<const T*>(a.images);
+  const T* words = static_cast<const T*>(a.words);
+  if constexpr (kMem)
+    memread_stream_kernel<T, V, kWords><<<a.grid, kThreads, lay.total,
+                                          a.stream>>>(
+        images, words, static_cast<const T*>(a.values), a.mask, a.gate_w,
+        a.gate_b, static_cast<T*>(a.ctx), a.attn, a.B, a.P, a.C, a.L, a.pt,
+        a.g, a.stages);
+  else
+    word_attention_stream_kernel<T, V, kWords><<<a.grid, kThreads, lay.total,
+                                                 a.stream>>>(
+        images, words, a.mask, static_cast<T*>(a.ctx), a.attn, a.B, a.P,
+        a.C, a.L, a.pt, a.g, a.stages, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V>
-int dispatch_words(const void* images, const void* words, const int* mask,
-                   void* ctx, float* attn, int B, int P, int C, int L, int pt,
-                   int g, int stages, int grid, float scale,
-                   cudaStream_t stream) {
+template <typename T, int V, bool kMem>
+int dispatch_words(const Args& a) {
   // the scores live in registers, so their count is a compile-time
   // constant: L itself up to 8 words, else a padded 16 or 32
-#define K1_WORDS(n)                                                        \
-  return launch<T, V, n>(images, words, mask, ctx, attn, B, P, C, L, pt, g, \
-                         stages, grid, scale, stream)
+  const int L = a.L;
+#define K1_WORDS(n) return launch<T, V, n, kMem>(a)
   switch (L) {
     case 1: K1_WORDS(1);
     case 2: K1_WORDS(2);
@@ -543,10 +661,10 @@ int dispatch_words(const void* images, const void* words, const int* mask,
 }  // namespace
 }  // namespace attngan
 
-// C entry point. Shapes, alignment and the plan (pt pixels a tile, g lanes
-// a pixel, ring stages, persistent blocks) come from the Python wrapper
-// (ops/cuda_attention.py::plan); they are re-checked here so that a bad
-// call fails as a CUDA error instead of reading out of bounds.
+// C entry points. Shapes, alignment and the plan (pt pixels a tile, g
+// lanes a pixel, ring stages, persistent blocks) come from the Python
+// wrapper (ops/cuda_attention.py::plan); they are re-checked here so that
+// a bad call fails as a CUDA error instead of reading out of bounds.
 extern "C" int word_attention(int dtype, const void* images, const void* words,
                               const int* mask, void* ctx, float* attn, int B,
                               int P, int C, int L, int pt, int g, int stages,
@@ -561,17 +679,35 @@ extern "C" int word_attention(int dtype, const void* images, const void* words,
       stages > kMaxStages || grid < 1 || (dtype != kFloat32 &&
                                           dtype != kBFloat16))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_words<float, 4>(images, words, mask, ctx, attn, B, P, C,
-                                    L, pt, g, stages, grid, scale, s);
-  if (v == 8)
-    return dispatch_words<__nv_bfloat16, 8>(images, words, mask, ctx, attn, B,
-                                            P, C, L, pt, g, stages, grid,
-                                            scale, s);
-  return dispatch_words<__nv_bfloat16, 4>(images, words, mask, ctx, attn, B,
-                                          P, C, L, pt, g, stages, grid, scale,
-                                          s);
+  const Args a{images, words, nullptr, mask, nullptr, nullptr, ctx, attn,
+               B, P, C, L, pt, g, stages, grid, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return dispatch_words<float, 4, false>(a);
+  if (v == 8) return dispatch_words<__nv_bfloat16, 8, false>(a);
+  return dispatch_words<__nv_bfloat16, 4, false>(a);
+}
+
+// The memory form: rows of 16-byte chunks, one a lane (g == C / v), so
+// fp32 at C % 4 == 0 and bf16 at C % 8 == 0; out is (B, P, 2C).
+extern "C" int memory_read(int dtype, const void* images, const void* key,
+                           const void* value, const int* mask,
+                           const float* gate_w, const float* gate_b,
+                           void* out, float* attn, int B, int P, int C, int L,
+                           int pt, int g, int stages, int grid,
+                           void* stream) {
+  using namespace attngan;
+  const int elem = dtype == kFloat32 ? 4 : 2;
+  const int v = 16 / elem;
+  if (L < 1 || L > 32 || C < v || C % v != 0 || P < 1 || B < 1 || pt < 1 ||
+      g < 1 || g > 32 || (g & (g - 1)) != 0 || g != C / v || stages < 1 ||
+      stages > kMaxStages || grid < 1 || (dtype != kFloat32 &&
+                                          dtype != kBFloat16))
+    return (int)cudaErrorInvalidValue;
+  const Args a{images, key, value, mask, gate_w, gate_b, out, attn,
+               B, P, C, L, pt, g, stages, grid, 1.f,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return dispatch_words<float, 4, true>(a);
+  return dispatch_words<__nv_bfloat16, 8, true>(a);
 }
 
 #ifdef K1_PHASE_CLOCKS

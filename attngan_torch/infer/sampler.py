@@ -4,9 +4,11 @@ Tokens -> BiLSTM (fp32) -> word mask -> Generator (eval BatchNorm) ->
 denormalize. The noise and the reparametrization eps can be injected (the
 JAX package draws them with jax.random, which no torch generator
 reproduces); otherwise they come from an explicit ``torch.Generator``.
-``GanConfig.generator`` = "dfgan" serves DF-GAN's generator
-(models/dfgan.py) on the same path: one 256^2 stage, no attention maps,
-eps drawn or taken and not read.
+``GanConfig.generator`` = "dmgan" serves DM-GAN's generator
+(models/dmgan.py) on the same path: AttnGAN's stages and outputs, each
+attention map a memory stage's addressing weights; "dfgan" serves
+DF-GAN's (models/dfgan.py): one 256^2 stage, no attention maps, eps drawn
+or taken and not read.
 
 Data parallel (``Sampler(mesh=)``, JAX's ``Sampler(mesh=)``): every rank
 is given the whole batch's tokens, draws the whole batch's noise and eps,
@@ -49,6 +51,7 @@ from attngan_torch.core.config import SHAPE_FIELDS, GanConfig, replace
 from attngan_torch.core.runtime import resolve_device, to_device
 from attngan_torch.data.dataset import word_mask
 from attngan_torch.models.dfgan import DFGenerator
+from attngan_torch.models.dmgan import DMGenerator
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
 from attngan_torch.ops import int8
@@ -62,7 +65,8 @@ def denormalize(images: torch.Tensor) -> torch.Tensor:
 
 
 # the generator families, by GanConfig.generator
-GENERATORS = {"attngan": Generator, "dfgan": DFGenerator}
+GENERATORS = {"attngan": Generator, "dmgan": DMGenerator,
+              "dfgan": DFGenerator}
 
 
 def build_generator(cfg: GanConfig) -> nn.Module:

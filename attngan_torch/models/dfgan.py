@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from attngan_torch.core.config import GanConfig
 from attngan_torch.core.runtime import compute_dtype
 from attngan_torch.ops.cuda_dfblock import SLOPE, dfblock_cuda
-from attngan_torch.ops.int8 import intercept
+from attngan_torch.ops.int8 import intercept, linear
 from attngan_torch.ops.layers import conv
 from attngan_torch.utils.timing import span
 
@@ -54,12 +54,6 @@ def channel_pairs(nf: int, imsize: int = IMSIZE) -> List[Tuple[int, int]]:
     widths = [nf * min(2 ** k, 8) for k in range(int(math.log2(imsize)) - 1)]
     widths = widths[::-1]
     return list(zip(widths[:-1], widths[1:]))
-
-
-def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``layer`` on fp32 ``x`` in fp32, or an int8 interceptor's site."""
-    y = intercept(layer, x)
-    return F.linear(x, layer.weight, layer.bias) if y is None else y
 
 
 def _mlp(cond_dim: int, features: int) -> nn.Sequential:
@@ -78,7 +72,7 @@ class Affine(nn.Module):
         self.fc_beta = _mlp(cond_dim, features)
 
     def forward(self, cond: torch.Tensor):
-        return tuple(_linear(mlp.linear2, F.relu(_linear(mlp.linear1, cond)))
+        return tuple(linear(mlp.linear2, F.relu(linear(mlp.linear1, cond)))
                      for mlp in (self.fc_gamma, self.fc_beta))
 
 

@@ -127,6 +127,21 @@ class NextStage(nn.Module):
             x = block(x)
         return self.up(x), attn
 
+    def int8_sites(self, prefix: str) -> Dict[nn.Module, str]:
+        """The word projection (a 1x1 conv in JAX: the same per-output-
+        channel scale) and the ResBlock convs, under JAX's paths."""
+        return {self.word_proj: f"{prefix}/word_proj",
+                **resblock_sites(self.res, prefix)}
+
+
+def resblock_sites(blocks, prefix: str) -> Dict[nn.Module, str]:
+    """{conv: JAX module path} of a stage's ResBlocks."""
+    sites = {}
+    for j, block in enumerate(blocks):
+        sites[block.conv1] = f"{prefix}/ResBlock_{j}/Conv_0"
+        sites[block.conv2] = f"{prefix}/ResBlock_{j}/Conv_1"
+    return sites
+
 
 class MakeImage(nn.Module):
     """Feature map -> RGB in [-1, 1], NHWC; tanh in fp32."""
@@ -151,6 +166,8 @@ class Generator(nn.Module):
     has_attention = True
     # why infer/export.py cannot write this family (None: it can)
     unexportable = None
+    # the module of stages 2..num_stages (models/dmgan.py: MemoryStage)
+    next_stage = NextStage
 
     def __init__(self, gf_dim: int = 32, emb_dim: int = 256, z_dim: int = 100,
                  cond_dim: int = 100, num_stages: int = 3,
@@ -163,7 +180,7 @@ class Generator(nn.Module):
                                  fused_upsample)
         self.img_out1 = MakeImage(gf_dim, dtype)
         for stage in range(2, num_stages + 1):
-            self.add_module(f"gen{stage}", NextStage(
+            self.add_module(f"gen{stage}", self.next_stage(
                 gf_dim, emb_dim, dtype=dtype, fused_attention=fused_attention,
                 fused_upsample=fused_upsample))
             self.add_module(f"img_out{stage}", MakeImage(gf_dim, dtype))
@@ -177,21 +194,15 @@ class Generator(nn.Module):
 
     def int8_sites(self) -> Dict[nn.Module, str]:
         """{layer: JAX module path} of the int8 tier (infer/quantize.py):
-        the CondAugment and InitialStage Dense, each NextStage's word
-        projection (a 1x1 conv in JAX: the same per-output-channel scale)
-        and ResBlock convs, each MakeImage conv. The UpBlocks' convs are
-        no sites."""
+        the CondAugment and InitialStage Dense, each next stage's sites
+        (``NextStage.int8_sites``), each MakeImage conv. The UpBlocks'
+        convs are no sites."""
         sites = {self.ca.fc: "CondAugment_0/Dense_0",
                  self.gen1.fc: "gen1/Dense_0"}
         for s in range(1, self.num_stages + 1):
             sites[getattr(self, f"img_out{s}").conv] = f"img_out{s}/Conv_0"
-            if s == 1:
-                continue
-            stage = getattr(self, f"gen{s}")
-            sites[stage.word_proj] = f"gen{s}/word_proj"
-            for j, block in enumerate(stage.res):
-                sites[block.conv1] = f"gen{s}/ResBlock_{j}/Conv_0"
-                sites[block.conv2] = f"gen{s}/ResBlock_{j}/Conv_1"
+            if s > 1:
+                sites.update(getattr(self, f"gen{s}").int8_sites(f"gen{s}"))
         return sites
 
     def forward(self, noise, sent_emb, word_embs, mask,

@@ -1,7 +1,9 @@
 """Attention primitives, plain PyTorch.
 
 ``word_attention`` is the plain version of K1 (generator word attention);
-``damsm_attention`` is the DAMSM word-region attention (AttnGAN Eq. 7-9).
+``memory_read`` is the plain version of K1's memory form (DM-GAN's
+key-value memory read and response gate); ``damsm_attention`` is the DAMSM
+word-region attention (AttnGAN Eq. 7-9).
 Port of attngan_tpu/ops/attention.py. Layouts are the JAX
 package's: images (B, H, W, C), words (B, L, C), mask (B, L), attention
 maps (B, L, H, W). The products accumulate in fp32 whatever the input type
@@ -40,6 +42,36 @@ def word_attention(
                            words.float()).to(images.dtype)
     attn_maps = attn.transpose(1, 2).reshape(b, -1, h, w)        # (B, L, H, W)
     return context.reshape(b, h, w, c), attn_maps
+
+
+def memory_read(
+    images: torch.Tensor,   # (B, H, W, C) pixel features r (query)
+    key: torch.Tensor,      # (B, L, C) memory keys
+    value: torch.Tensor,    # (B, L, C) memory values
+    mask: torch.Tensor,     # (B, L) 1 for real words, 0 for padding
+    gate_w: torch.Tensor,   # (2C,) the response gate's weight over [r; o]
+    gate_b: torch.Tensor,   # (1,) its bias
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DM-GAN's memory read and response gate (Zhu et al. 2019, Eq. 6-9):
+    (out (B, H, W, 2C) in the images' type, attn (B, L, H, W) fp32).
+
+    Unscaled logits r . k, a masked softmax over the words, o = attn . v,
+    all in fp32 (attn is not rounded before the product); the gate
+    g = sigmoid(gate_w . [r; o] + gate_b) and r' = o g + r (1 - g) in fp32,
+    rounded once to the images' type and written into both halves of the
+    output (DM-GAN's ``cat((r', r'), 1)``)."""
+    b, h, w, c = images.shape
+    pix = images.reshape(b, h * w, c).float()
+    scores = torch.einsum("bpc,blc->bpl", pix, key.float())
+    scores = scores.masked_fill(mask[:, None, :] == 0, NEG_INF)
+    attn = torch.softmax(scores, dim=-1)                          # (B, P, L)
+    read = torch.einsum("bpl,blc->bpc", attn, value.float())
+    gate_w = gate_w.float()
+    gate = torch.sigmoid(pix @ gate_w[:c] + read @ gate_w[c:]
+                         + gate_b.float())[..., None]
+    r = (read * gate + pix * (1.0 - gate)).to(images.dtype)
+    out = torch.cat([r, r], dim=-1).reshape(b, h, w, 2 * c)
+    return out, attn.transpose(1, 2).reshape(b, -1, h, w)
 
 
 def damsm_attention(

@@ -1,4 +1,5 @@
-"""K1: the generator's word attention as a CUDA kernel for Hopper.
+"""K1: the generator's word attention as a CUDA kernel for Hopper, and its
+memory form.
 
 Replaces attngan_tpu/ops/pallas_attention.py (``word_attention_pallas``).
 The kernel is csrc/word_attention.cu (``word_attention_stream_kernel``):
@@ -7,6 +8,12 @@ copies, ``plan`` below sizes its tiles, lanes, ring and grid. Its plain
 version is ops/attention.py::word_attention, which this wrapper runs for a
 CPU tensor and nowhere else. The backward recomputes through the plain
 version, as ``_word_attention_pallas_bwd`` does through the jnp reference.
+
+``memory_read_cuda`` is the same streaming kernel's memory form
+(``memread_stream_kernel``, K10 in PERF.md's table): DM-GAN's key-value
+memory read with its response gate fused in (models/dmgan.py), whose
+plain version is ops/attention.py::memory_read. It serves only: it has no
+backward, and refuses inputs that need one.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from attngan_torch.ops import _build
-from attngan_torch.ops.attention import word_attention
+from attngan_torch.ops.attention import memory_read, word_attention
 
 MAX_WORDS = 32
 # the kernel's plan (csrc/word_attention.cu): a tile of at most MAX_TILE
@@ -54,13 +61,17 @@ def word_slots(l: int) -> int:
 
 
 def smem_bytes(c: int, l: int, itemsize: int, pt: int, g: int,
-               stages: int) -> int:
+               stages: int, memory: bool = False) -> int:
     """A block's shared memory, as csrc/word_attention.cu::Layout lays it
-    out: barriers, fp32 words and mask flags (``word_slots`` rows), two (L,
-    ld) attention tiles whose rows fall in other banks, the ring."""
+    out: barriers, fp32 words (the memory form: keys, values and the
+    gate's 2C + 1 floats) and mask flags (``word_slots`` rows), two (L, ld)
+    attention tiles whose rows fall in other banks, the ring."""
     ld = pt + max(4, 32 // g)
     words = word_slots(l)
     valid_off = 128 + _round_up(words * c * 4, 16)
+    if memory:
+        valid_off += (_round_up(words * c * 4, 16)
+                      + _round_up((2 * c + 1) * 4, 16))
     ring_off = _round_up(_round_up(valid_off + words * 4, 128)
                          + 2 * l * ld * 4, 128)
     return ring_off + stages * _round_up(pt * c * itemsize, 128)
@@ -76,14 +87,16 @@ class Plan(NamedTuple):
     units: int     # work units (image, tile), b-major
 
 
-def plan(b: int, p: int, c: int, l: int, itemsize: int, sms: int) -> Plan:
+def plan(b: int, p: int, c: int, l: int, itemsize: int, sms: int,
+         memory: bool = False) -> Plan:
     """How the kernel covers (B, P, C) images: G lanes a pixel (the largest
     power of two up to 32 that the row's chunks fill), tiles of pt pixels
     (a multiple of the block's pass, 8 warps x 32/G pixels x the pixels a
     lane takes, where a stage holds one), a ring of STAGES tiles, two
     blocks an SM where their shared memory fits (else one), and
     min(units, blocks a wave) blocks, block i taking units
-    [units*i/grid, units*(i+1)/grid)."""
+    [units*i/grid, units*(i+1)/grid). ``memory``: the memory form's
+    shared memory."""
     nc = c // chunk_values(c, itemsize)
     g = 1 << (min(nc, 32).bit_length() - 1)
     per_pass = 8 * (32 // g) * (2 if word_slots(l) <= 8 else 1)
@@ -93,7 +106,7 @@ def plan(b: int, p: int, c: int, l: int, itemsize: int, sms: int) -> Plan:
     elif pt >= 4:
         pt -= pt % 4
     pt = min(pt, _round_up(p, 4))
-    smem = smem_bytes(c, l, itemsize, pt, g, STAGES)
+    smem = smem_bytes(c, l, itemsize, pt, g, STAGES, memory)
     blocks = next((n for n in (BLOCKS_PER_SM, 1)
                    if smem <= min(SMEM_LIMIT, SM_SMEM // n - SMEM_RESERVED)),
                   None)
@@ -156,6 +169,9 @@ def _lib() -> ctypes.CDLL:
     lib.word_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                    i, ctypes.c_float, p]
     lib.word_attention.restype = i
+    lib.memory_read.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                i, i, i, p]
+    lib.memory_read.restype = i
     return lib
 
 
@@ -214,3 +230,81 @@ def word_attention_cuda(images: torch.Tensor, words: torch.Tensor,
 
 
 word_attention_cuda.launches = 0   # kernel launches, for tests and smoke runs
+
+
+def _launch_memory_read(images, key, value, mask, gate_w, gate_b
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, h, w, c = images.shape
+    l = key.shape[1]
+    if images.dtype not in _build.DTYPE_CODES or {key.dtype, value.dtype} \
+            != {images.dtype}:
+        raise TypeError(f"memory_read_cuda takes fp32 or bf16 images, key "
+                        f"and value of one type; got {images.dtype}, "
+                        f"{key.dtype}, {value.dtype}")
+    if (key.shape != (b, l, c) or value.shape != (b, l, c)
+            or mask.shape != (b, l) or gate_w.shape != (2 * c,)
+            or gate_b.numel() != 1):
+        raise ValueError(f"shapes disagree: images {tuple(images.shape)}, "
+                         f"key {tuple(key.shape)}, value "
+                         f"{tuple(value.shape)}, mask {tuple(mask.shape)}, "
+                         f"gate_w {tuple(gate_w.shape)}, gate_b "
+                         f"{tuple(gate_b.shape)}")
+    if not 1 <= l <= MAX_WORDS:
+        raise ValueError(f"memory_read_cuda takes 1..{MAX_WORDS} words; "
+                         f"got {l}")
+    v = _build.vector_values(images.dtype)
+    chunks = c // v
+    if c % v or chunks > 32 or chunks & (chunks - 1):
+        raise ValueError(f"memory_read_cuda takes rows of 1, 2, 4 .. 32 "
+                         f"16-byte chunks (one a lane); got C={c} in "
+                         f"{images.dtype}")
+    operands = (("images", images), ("key", key), ("value", value),
+                ("mask", mask), ("gate_w", gate_w), ("gate_b", gate_b))
+    for name, t in operands:
+        if t.device != images.device:
+            raise ValueError(f"{name} is on {t.device}, images on "
+                             f"{images.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for _, t in operands):
+        raise RuntimeError("memory_read_cuda has no backward: call it with "
+                           "grad off, or run ops/attention.py::memory_read")
+    for name, t in operands[:3]:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if mask.dtype != torch.int32:     # the serving mask is int32 already
+        mask = (mask != 0).to(torch.int32)
+    mask = mask.contiguous()
+    gate_w = gate_w.float().contiguous()
+    gate_b = gate_b.float().contiguous()
+    pl = plan(b, h * w, c, l, images.element_size(), _sm_count(images.device),
+              memory=True)
+    out = torch.empty((b, h, w, 2 * c), dtype=images.dtype,
+                      device=images.device)
+    attn = torch.empty((b, l, h, w), dtype=torch.float32, device=images.device)
+    status = _lib().memory_read(
+        _build.DTYPE_CODES[images.dtype], images.data_ptr(), key.data_ptr(),
+        value.data_ptr(), mask.data_ptr(), gate_w.data_ptr(),
+        gate_b.data_ptr(), out.data_ptr(), attn.data_ptr(), b, h * w, c, l,
+        pl.pt, pl.g, pl.stages, pl.grid,
+        torch.cuda.current_stream(images.device).cuda_stream)
+    _build.check(status, "memory_read")
+    memory_read_cuda.launches += 1
+    return out, attn
+
+
+def memory_read_cuda(images: torch.Tensor, key: torch.Tensor,
+                     value: torch.Tensor, mask: torch.Tensor,
+                     gate_w: torch.Tensor, gate_b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DM-GAN's fused memory read and response gate: (out (B,H,W,2C),
+    attn (B,L,H,W) fp32), as ops/attention.py::memory_read computes them.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+    plain version."""
+    if images.device.type == "cpu":
+        return memory_read(images, key, value, mask, gate_w, gate_b)
+    if images.device.type != "cuda":
+        raise ValueError(f"no kernel for device {images.device}")
+    return _launch_memory_read(images, key, value, mask, gate_w, gate_b)
+
+
+memory_read_cuda.launches = 0   # kernel launches, for tests and smoke runs

@@ -59,6 +59,14 @@ def intercept(layer: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
     return None if _interceptor is None else _interceptor(layer, x)
 
 
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on ``x`` in x's type (fp32 where the callers keep it), or
+    the interceptor's site: a Linear the model computes in full precision
+    itself."""
+    y = intercept(layer, x)
+    return F.linear(x, layer.weight, layer.bias) if y is None else y
+
+
 def quantizable(layer: nn.Module) -> bool:
     """JAX's ``_is_quantizable``: every Dense, and plain convs only
     (grouped or dilated ones stay float)."""

@@ -78,6 +78,15 @@ from attngan_torch.parallel.mesh import (
 )
 
 LOSS_VARIANTS = ("non_saturating", "standard")
+# why the GAN step does not train each generator family it refuses (the
+# port serves their checkpoints)
+UNTRAINED = {
+    "dfgan": ("DF-GAN trains with its own objective, a hinge loss with "
+              "MA-GP and its own discriminator, which the port does not have"),
+    "dmgan": ("the step builds AttnGAN's generator (models/generator.py), "
+              "and DM-GAN's memory read on the card is a kernel with no "
+              "backward"),
+}
 
 
 @dataclass
@@ -107,10 +116,8 @@ class GanTrainer:
         if cfg.generator != "attngan":
             raise ValueError(
                 f"the GAN step trains AttnGAN's generator only; got "
-                f"generator={cfg.generator!r} (DF-GAN trains with its own "
-                f"objective, a hinge loss with MA-GP and its own "
-                f"discriminator, which the port does not have: it serves "
-                f"DF-GAN checkpoints)")
+                f"generator={cfg.generator!r}: "
+                f"{UNTRAINED.get(cfg.generator, 'no such family')}")
         if cfg.loss_variant not in LOSS_VARIANTS:
             raise ValueError(f"loss_variant must be one of {LOSS_VARIANTS}; "
                              f"got {cfg.loss_variant!r}")

@@ -73,6 +73,20 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    cluster takes; the serving sampler's eager call, capture and replay at
    batch 64 (K9 launched 1, 1 and 0 times by the host, the replay's 1 by
    torch.profiler's count);
+   4f. DM-GAN (``memread_phase``; gf 64, emb 256, 18-word captions, bf16,
+   batch 64): K1's memory form (``memory_read_cuda``) against its plain
+   version at the two memory stages' shapes (64^2 and 128^2, C 64, L 18),
+   timed (L2 cold) beside its bound (bytes at 3.35 TB/s or operations at
+   989 TFLOP/s, the larger) and its plain version, and in fp32 and bf16
+   at odd shapes over L in {1, 8, 18}; K2 at DM-GAN's (Ci, Co) = (128,
+   64), whose resident form cannot hold its weights, in its mma form
+   against the plain version and the plain serving chain; K1's AttnGAN
+   form at the serving shapes (64 rows, C 32, L 5 and 18), timed as
+   phase 2 times it, to show that the memory form left it as it was; the
+   DM-GAN sampler's eager call, capture and replay (the memory form
+   launched 2, 2 and 0 times by the host, the replay's 2 by
+   torch.profiler's count), img/s over 4 windows of 10 calls and the
+   memory reserved;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -246,7 +260,8 @@ BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
 TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
-NO_SPILL = ("word_attention_stream_kernel", "upblock_resident_kernel",
+NO_SPILL = ("word_attention_stream_kernel", "memread_stream_kernel",
+            "upblock_resident_kernel",
             "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel",
             "bn_epilogue_kernel", "bilstm_kernel")
 L2_BYTES = 50 * 2 ** 20
@@ -4299,6 +4314,190 @@ def bilstm_phase(torch, card_name: str) -> tuple:
     return {"bilstm": total}, {"bilstm": rises[1]}
 
 
+# phase 4f: the dmgan-serve-b64 cell's widths
+DMGAN_GF, DMGAN_SEQ = 64, 18
+
+
+def memread_inputs(torch, g, b, hw, c, l, dtype):
+    """Pixel rows, ReLU'd keys and values, a mask of lengths 1..L (one row
+    at L) and the gate, as a memory stage gives them to the kernel."""
+    h, w = hw
+    images = torch.randn((b, h, w, c), generator=g, device="cuda").to(dtype)
+    key, value = (torch.relu(torch.randn((b, l, c), generator=g,
+                                         device="cuda")).to(dtype)
+                  for _ in range(2))
+    lengths = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
+    lengths[0] = l
+    mask = (torch.arange(l, device="cuda") < lengths[:, None]).to(torch.int32)
+    gate_w = torch.randn((2 * c,), generator=g, device="cuda") / (2 * c) ** 0.5
+    gate_b = 0.05 * torch.randn((1,), generator=g, device="cuda")
+    return images, key, value, mask, gate_w, gate_b
+
+
+def memread_phase(torch, card_name: str) -> tuple:
+    """Phase 4f. Returns ({"memory_read": totals over the two memory
+    stages of a call in bf16}, {"memory_read": launches in the sampler's
+    capture call})."""
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.infer.sampler import InferState, Sampler
+    from attngan_torch.ops.attention import memory_read, word_attention
+    from attngan_torch.ops.cuda_attention import (
+        memory_read_cuda,
+        word_attention_cuda,
+    )
+    from attngan_torch.ops.cuda_upblock import (
+        form as upblock_form,
+        upblock_fused_eval,
+        upblock_fused_eval_cuda as k2,
+    )
+
+    g = torch.Generator("cuda").manual_seed(25)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                 flops_ms=0.0, max_abs_err=0.0, form="stream")
+    cases = [(torch.bfloat16, BATCH, (hw, hw), DMGAN_GF, DMGAN_SEQ)
+             for hw in (64, 128)]
+    cases += [(dtype, b, hw, c, l) for dtype in (torch.float32, torch.bfloat16)
+              for b, hw, c in ((3, (7, 5), 64), (2, (9, 13), 32))
+              for l in (1, 8, 18)]
+    for dtype, b, hw, c, l in cases:
+        tname = str(dtype).split(".")[-1]
+        args = memread_inputs(torch, g, b, hw, c, l, dtype)
+        before = memory_read_cuda.launches
+        got = memory_read_cuda(*args)
+        torch.cuda.synchronize()
+        counted = memory_read_cuda.launches - before
+        fail_unless(counted == 1, f"memory_read counted {counted}")
+        want = memory_read(*args)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   **TOL[tname])
+        torch.testing.assert_close(got[1], want[1], **ATTN_TOL)
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        line = {"phase": "memread", "step": "k10", "shape": [b, *hw, c],
+                "words": l, "dtype": tname, "max_abs_err": err}
+        if b == BATCH:
+            moved = nbytes(*args, *got)
+            # scores and the read, 2 L C each; the gate's dot and blend
+            flops = b * hw[0] * hw[1] * (4 * l * c + 7 * c)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+            ms = time_ms(lambda: memory_read_cuda(*args))
+            plain_ms = time_ms(lambda: memory_read(*args))
+            bound = max(bytes_ms, flops_ms)
+            line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        roofline_pct=100 * bound / ms, bytes=moved,
+                        attn_max=float(got[1].max()),
+                        attn_top_mean=float(got[1].amax(1).mean()),
+                        card=card_name)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound), ("bytes_ms", bytes_ms),
+                           ("flops_ms", flops_ms)):
+                total[key] += v
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+        print(json.dumps(line), flush=True)
+
+    # K2 at DM-GAN's memory stages' UpBlocks: (Ci, Co) = (128, 64)
+    ci, co = 2 * DMGAN_GF, DMGAN_GF
+    for hw in (64, 128):
+        x = torch.randn((BATCH, hw, hw, ci), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        weight = torch.randn((2 * co, ci, 3, 3), generator=g,
+                             device="cuda") * (9 * ci) ** -0.5
+        bn_k = torch.rand(2 * co, generator=g, device="cuda") + 0.5
+        bn_b = 0.1 * torch.randn(2 * co, generator=g, device="cuda")
+        before, resident = k2.launches, k2.resident_launches
+        got = k2(x, weight, bn_k, bn_b)
+        torch.cuda.synchronize()
+        form = upblock_form(x.dtype, ci, co)
+        fail_unless(form == "mma" and k2.launches == before + 1
+                    and k2.resident_launches == resident,
+                    f"K2 at ({ci}, {co}): the {form} form")
+        want = upblock_fused_eval(x, weight, bn_k, bn_b)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL["bfloat16"])
+        moved = nbytes(x, weight.to(torch.bfloat16), bn_k, bn_b, got)
+        flops = 2 * BATCH * (2 * hw) ** 2 * (2 * co) * (4 * ci)
+        bound = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        ms = time_ms(lambda: k2(x, weight, bn_k, bn_b))
+        chain = upblock_chain(torch, weight, bn_k, bn_b, torch.bfloat16)
+        nchw = x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            chain_ms = time_ms(lambda: chain(nchw))
+        print(json.dumps({
+            "phase": "memread", "step": "k2", "shape": [BATCH, hw, hw, ci],
+            "co": co, "form": form,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": ms, "chain_ms": chain_ms, "bound_ms": bound,
+            "roofline_pct": 100 * bound / ms, "card": card_name}), flush=True)
+
+    # K1's AttnGAN form at the serving shapes, timed as phase 2 times it
+    for l in (SEQ_LEN, DMGAN_SEQ):
+        ms = []
+        for hw in (64, 128):
+            images = torch.randn((BATCH, hw, hw, 32), generator=g,
+                                 device="cuda").to(torch.bfloat16)
+            words = torch.randn((BATCH, l, 32), generator=g,
+                                device="cuda").to(torch.bfloat16)
+            lengths = torch.randint(1, l + 1, (BATCH,), generator=g,
+                                    device="cuda")
+            mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]
+                    ).to(torch.int32)
+            got = word_attention_cuda(images, words, mask)
+            want = word_attention(images, words, mask)
+            torch.testing.assert_close(got[0].float(), want[0].float(),
+                                       **TOL["bfloat16"])
+            torch.testing.assert_close(got[1], want[1], **ATTN_TOL)
+            ms.append(time_ms(lambda: word_attention_cuda(images, words,
+                                                          mask)))
+        print(json.dumps({"phase": "memread", "step": "k1_attngan",
+                          "batch": BATCH, "words": l, "gen2_ms": ms[0],
+                          "gen3_ms": ms[1], "ms": sum(ms),
+                          "card": card_name}), flush=True)
+
+    # the serving path at batch 64: eager call, capture, replays
+    cfg = GanConfig(generator="dmgan", gf_dim=DMGAN_GF, seq_len=DMGAN_SEQ)
+    torch.manual_seed(0)
+    sampler = Sampler(InferState(cfg, CUB_VOCAB), device="cuda")
+    lengths = torch.randint(8, DMGAN_SEQ + 1, (BATCH,), generator=g,
+                            device="cuda").cpu()
+    tokens = torch.randint(1, CUB_VOCAB, (BATCH, DMGAN_SEQ), generator=g,
+                           device="cuda")
+    tokens = torch.where(torch.arange(DMGAN_SEQ, device="cuda")
+                         < lengths.cuda()[:, None], tokens, 0)
+    rises, images = [], []
+    for _ in range(3):                              # eager, capture, replay
+        before = memory_read_cuda.launches
+        images.append(sampler.generate_from_tokens(tokens, lengths).clone())
+        torch.cuda.synchronize()
+        rises.append(memory_read_cuda.launches - before)
+    fail_unless(rises == [2, 2, 0], f"DM-GAN memory reads {rises}, "
+                f"expected [2, 2, 0]")
+    paths = (sampler.eager_calls, sampler.captures, sampler.replays)
+    fail_unless(paths == (1, 1, 2), f"DM-GAN eager calls, captures, "
+                f"replays {paths}, expected (1, 1, 2)")
+    for got in images[1:]:
+        torch.testing.assert_close(got, images[0], **TOL["bfloat16"])
+    windows = []          # timed before the profiler count below
+    for _ in range(4):
+        start = time.perf_counter()
+        for _ in range(10):
+            sampler.generate_from_tokens(tokens, lengths)
+        torch.cuda.synchronize()
+        windows.append(10 * BATCH / (time.perf_counter() - start))
+    replayed = device_kernel_counts(
+        torch, lambda: sampler.generate_from_tokens(tokens, lengths))
+    k10 = sum(n for k, n in replayed.items() if "memread" in k)
+    fail_unless(k10 == 2, f"a DM-GAN replay ran the memory form {k10} times")
+    print(json.dumps({
+        "phase": "memread", "step": "serve", "batch": BATCH,
+        "memread_launches": rises, "paths": paths, "replay_memread": k10,
+        "replay_kernels": sum(replayed.values()),
+        "img_per_s": statistics.median(windows), "windows": windows,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "totals": total, "card": card_name}), flush=True)
+    return {"memory_read": total}, {"memory_read": rises[1]}
+
+
 def main() -> int:
     import torch
 
@@ -4356,6 +4555,9 @@ def main() -> int:
     bilstm_totals, bilstm_launches = bilstm_phase(torch, card_name)
     totals.update(bilstm_totals)
     lap("bilstm")
+    memread_totals, memread_launches = memread_phase(torch, card_name)
+    totals.update(memread_totals)
+    lap("memread")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
@@ -4388,12 +4590,12 @@ def main() -> int:
     last_launches = last_modules_phase(torch, card_name)
     lap("last_modules")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
-    # launches summed over every path: serving, DF-GAN, the BN epilogue's
-    # and the BiLSTM's serving calls, pretrain, GAN step, loops,
+    # launches summed over every path: serving, DF-GAN, the BN epilogue's,
+    # the BiLSTM's and DM-GAN's serving calls, pretrain, GAN step, loops,
     # captioner, pretrain options, data parallel (every rank's), side
     # tiers, the last modules (MFU and the tools)
     for counted in (dfgan_launches, bn_launches, bilstm_launches,
-                    damsm_launches, gan_launches, loop_launches,
+                    memread_launches, damsm_launches, gan_launches, loop_launches,
                     captioner_launches, options_launches, dp_launches,
                     side_launches, last_launches):
         for name, n in counted.items():
@@ -4417,6 +4619,8 @@ def main() -> int:
         "bn_epilogue": ("attngan_torch/csrc/bn_epilogue.cu", None),
         # the JAX package scans the BiLSTM in XLA
         "bilstm": ("attngan_torch/csrc/bilstm.cu", None),
+        # K1's memory form: DM-GAN's (the JAX package has no DM-GAN)
+        "memory_read": ("attngan_torch/csrc/word_attention.cu", None),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
