@@ -6,9 +6,9 @@
 // attngan_tpu/ops/pallas_upblock_packed.py::_kernel. The latter computes
 // the same function at exactly Ci=64 -> Co=32, with column pairs packed
 // into the TPU's 128-wide lanes. That packing has no meaning on Hopper,
-// whose form for exactly those dims is upblock_resident_kernel below, so
-// K3 (ops/cuda_upblock_packed.py) launches it in bf16, and the CUDA-core
-// upblock_kernel in fp32: no kernel of its own.
+// whose form for exactly those dims is upblock_resident_kernel below: K2's
+// wrapper (ops/cuda_upblock.py) launches it in bf16, and the CUDA-core
+// upblock_kernel in fp32, so K3 needs no kernel of its own.
 //
 // Math (the exact parity decomposition of attngan_tpu/ops/layers.py::
 // upsample_conv3x3_fused): output pixel (2i+py, 2j+px) of the 3x3 conv over
@@ -26,8 +26,11 @@
 // cores become the limit. So bf16, the serving type, runs its products on
 // the tensor cores: at the serving dims (Ci=64 -> Co=32) in the Hopper form
 // below (upblock_resident_kernel: persistent blocks with resident weights,
-// a cp.async input ring and wgmma), at other dims warp-level 16x16x16 mma
-// through nvcuda::wmma (upblock_mma_kernel), fp32 accumulators in both;
+// a cp.async input ring and wgmma), at DM-GAN's (Ci=128 -> Co=64) in its
+// cluster form (upblock_cluster_kernel: each of four CTAs keeps one
+// parity's weights resident, the four share each input tile by TMA
+// multicast), at other dims warp-level 16x16x16 mma through nvcuda::wmma
+// (upblock_mma_kernel), fp32 accumulators in all three;
 // fp32 keeps exact fp32 FMAs on the CUDA cores (the tensor cores would
 // round it to TF32). All keep the property the TPU kernel exists for: the
 // input is read from memory once (a tile plus its one-pixel halo, staged
@@ -40,6 +43,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cuda.h>      // CUtensorMap; the encoder is fetched at run time
 #include "common.cuh"  // cuda_bf16.h first: mma.h then has the bf16 fragments
 
 #include <mma.h>
@@ -669,6 +673,498 @@ int launch_resident(const void* x, const void* wr, const float* scale,
 
 }  // namespace res
 
+// ---- K2, bf16, the cluster form: DM-GAN's (Ci, Co) = (128, 64) --------------
+//
+// What bounds it: operations, 0.139 + 0.556 ms at batch 64 for DM-GAN's two
+// refinement UpBlocks (64^2 -> 128^2 and 128^2 -> 256^2) at 989 TFLOP/s; the
+// bytes (input once, output once) take less than half that at 3.35 TB/s.
+// What held the other forms back there: the parity weights are
+// 4 x (4*128) x 128 bf16 = 512 KB, which no SM's 227 KB holds, so the
+// warp-level form reloaded its B fragments from L2 for every 8x16 tile and
+// every parity, with a synchronous tile load. This form:
+// - splits the weights over a cluster of four CTAs: CTA rank r keeps parity
+//   r's B operand (K = 4*Ci = 512 by N = 2*Co = 128, 128 KB, the
+//   arrangement of ops/cuda_upblock.py::resident_weights) in shared memory
+//   for its whole life, copied once by bulk copies, and writes only parity
+//   r's output pixels;
+// - is persistent: the grid is the clusters the card holds at once, which
+//   walk the work units (image, 8 source rows, 16 source columns; the
+//   resident form's) with a static stride, all four CTAs of a cluster on
+//   the same unit;
+// - loads each unit's zero-padded 10 x 18 x Ci tile once per cluster: each
+//   CTA issues a quarter of its 8-channel planes as TMA tensor loads
+//   multicast to all four (the out-of-bounds fill gives the halo's zeros),
+//   into a ring of two slots. A slot's "full" mbarrier expects the whole
+//   tile's bytes; its "empty" mbarrier counts the releases of all four
+//   CTAs' consumer warps, so no CTA overwrites a slot a peer still reads;
+// - runs the products as wgmma.m64n128k16 with both operands in shared
+//   memory: one producer warp, and two consumer warpgroups that take the
+//   cluster's units in turn, each a whole unit (two 8x8 pixel blocks, M = 64
+//   each, 2 x 64 fp32 accumulators a thread). A named-barrier turn makes
+//   one warpgroup issue its products only after the other has issued its
+//   own, so that each one's epilogue runs under the other's products;
+// - applies the folded BN and the GLU in registers: in the m64n128k16
+//   accumulator layout a thread holding column c of N block j holds column
+//   c + 64 of block j + 8, so each GLU pair stays in one thread; the
+//   halved constants are read from shared memory; two 4x4 transposes in
+//   each lane quad give a lane 16 consecutive bytes twice a pixel.
+//
+// Operand layouts, canonical K-major without swizzle, as the resident form's
+// (res:: above): A is the tile as 8-channel planes (Ci/8, 10 rows, 18 pixels,
+// 8), a plane 2,880 bytes as TMA writes it, 128-byte aligned apart; B is
+// [K/8][N/8][8 n][8 k], SBO 128 bytes, LBO N/8 * 128.
+namespace clu {
+
+constexpr int kCluster = 4;                    // CTAs a cluster; rank = parity
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kThreads = kConsumers + 32;      // and the producer warp
+constexpr int kSlots = 2;                      // tiles in the ring
+constexpr int kTR = res::kRows + 2, kTC = res::kCols + 2;  // with the halo
+constexpr uint32_t kRowBytes = kTC * 16;       // A's SBO: one tile row
+constexpr uint32_t kChunkBytes = 16384;        // a bulk copy of the weights
+
+template <int Ci, int Co>
+struct Shape {
+  static constexpr int kPlanes = Ci / 8;
+  static constexpr int kPlanesPerRank = kPlanes / kCluster;
+  static constexpr int kN = 2 * Co;
+  static constexpr int kK = 4 * Ci;
+  static constexpr int kSteps = kK / 16;             // k16 steps per parity
+  static constexpr int kStepsPerTap = Ci / 16;
+  static constexpr uint32_t kBoxBytes = kTR * kTC * 16;   // a plane's TMA box
+  // TMA writes to 128-byte aligned shared addresses
+  static constexpr uint32_t kPlaneBytes = (kBoxBytes + 127) / 128 * 128;
+  static constexpr uint32_t kTileBytes = kPlanes * kPlaneBytes;
+  static constexpr uint32_t kTileTx = kPlanes * kBoxBytes;  // a full barrier's
+  static constexpr uint32_t kKGroupBytes = kN / 8 * 128;    // B's LBO
+  static constexpr uint32_t kWeightBytes = kK * kN * 2;     // one parity
+  static constexpr uint32_t kRingOff = kWeightBytes;
+  static constexpr uint32_t kBarOff = kRingOff + kSlots * kTileBytes;
+  static constexpr uint32_t kConstOff = kBarOff + 64;   // 5 mbarriers
+  static constexpr uint32_t kSmemBytes = kConstOff + 4 * Co * 4;
+  static_assert(kN == 128, "the consumers are m64n128k16: 2*Co must be 128");
+  static_assert(Ci % 16 == 0 && kPlanes % kCluster == 0,
+                "a k16 step takes 16 channels; the ranks share the planes");
+  static_assert(kWeightBytes % kChunkBytes == 0, "whole bulk copies");
+  static_assert(kSmemBytes <= 232448, "weights and ring exceed an SM");
+};
+
+// this CTA's rank in its cluster, the cluster's index, the clusters
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return (int)v;
+}
+__device__ __forceinline__ int cluster_index() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  return (int)v;
+}
+__device__ __forceinline__ int cluster_count() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(v));
+  return (int)v;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on the barrier at the same offset in CTA `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 a;\nmapa.shared::cluster.u32 a, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [a];\n}\n" ::"r"(
+          bar),
+      "r"(rank)
+      : "memory");
+}
+
+// bytes from global memory to this CTA's shared memory, counted on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One TMA box of the 4-D map (channel, column, row, image) into the same
+// shared offset of every CTA in `mask`, counted on each one's bar.
+__device__ __forceinline__ void tma_multicast(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, uint16_t mask,
+                                              int c, int col, int row,
+                                              int img) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c),
+      "r"(col), "r"(row), "r"(img)
+      : "memory");
+}
+
+// bar.sync / bar.arrive on a named barrier of both consumer warpgroups
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A * B^T, m64n128k16, bf16 operands from shared memory, fp32 sums.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, "
+      "%63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// One 8x8 pixel block's K = 4*Ci products into d: da is the block's tap
+// (0, 0) in plane 0, db the parity's weights.
+template <int Ci, int Co>
+__device__ __forceinline__ void issue_block(float (&d)[64], uint64_t da,
+                                            uint64_t db) {
+  using S = Shape<Ci, Co>;
+#pragma unroll
+  for (int s = 0; s < S::kSteps; ++s) {
+    const int tap = s / S::kStepsPerTap;
+    const uint32_t a_off = 2 * (s % S::kStepsPerTap) * S::kPlaneBytes +
+                           ((tap >> 1) * kTC + (tap & 1)) * 16;
+    const uint32_t b_off = 2 * s * S::kKGroupBytes;
+    wgmma_m64n128k16(d, da + (a_off >> 4), db + (b_off >> 4), s > 0);
+  }
+}
+
+// A unit's products for one warpgroup: both 8x8 pixel blocks of parity
+// (py, px), issued and committed as one wgmma group.
+template <int Ci, int Co>
+__device__ __forceinline__ void issue_unit(float (&d0)[64], float (&d1)[64],
+                                           uint32_t s_tile, uint32_t s_w,
+                                           int py, int px) {
+  using S = Shape<Ci, Co>;
+  const uint64_t db = res::make_desc(s_w, S::kKGroupBytes, 128);
+  const uint32_t a0 = s_tile + (py * kTC + px) * 16;
+  fence_acc(d0);
+  fence_acc(d1);
+  res::wgmma_fence();
+  issue_block<Ci, Co>(d0, res::make_desc(a0, S::kPlaneBytes, kRowBytes), db);
+  issue_block<Ci, Co>(d1, res::make_desc(a0 + 8 * 16, S::kPlaneBytes,
+                                         kRowBytes), db);
+  res::wgmma_commit();
+  fence_acc(d0);
+  fence_acc(d1);
+}
+
+// Lane q of each quad holds words j = 0..3 of channels 8j+2q, 8j+2q+1; after
+// the exchange it holds word j of lane j, i.e. channels 8q .. 8q+7 in order.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int bit = 1; bit <= 2; bit <<= 1) {
+    const bool hi = q & bit;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j & bit) continue;
+      const uint32_t send = hi ? v[j] : v[j | bit];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, send, bit);
+      if (hi)
+        v[j] = got;
+      else
+        v[j | bit] = got;
+    }
+  }
+}
+
+// Folded BN + GLU on one 8x8 block's accumulators and the store. Warp w of
+// the warpgroup holds source rows 2w (h=0) and 2w+1 (h=1) of the block,
+// lane quad lane/4 its column; lane q holds channels 8j+2q, 8j+2q+1 of the
+// a half (N blocks j < 8) and of the g half (blocks j + 8). k holds the
+// halved constants: scale and bias of the a half, then of the g half. With
+// h = a/2 and t = tanh(g/2), a * sigmoid(g) = h + h*t, as res::glu_store.
+template <int Co>
+__device__ __forceinline__ void glu_store(const float (&d)[64],
+                                          const float* k,
+                                          __nv_bfloat16* __restrict__ out,
+                                          int b, int sr0, int sc, int py,
+                                          int px, int H, int W) {
+  const int q = threadIdx.x & 3;
+  uint32_t v[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * q;
+    const float2 ka = *reinterpret_cast<const float2*>(k + c);
+    const float2 ba = *reinterpret_cast<const float2*>(k + Co + c);
+    const float2 kg = *reinterpret_cast<const float2*>(k + 2 * Co + c);
+    const float2 bg = *reinterpret_cast<const float2*>(k + 3 * Co + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ha0 = fmaf(d[4 * j + 2 * h], ka.x, ba.x);
+      const float ha1 = fmaf(d[4 * j + 2 * h + 1], ka.y, ba.y);
+      const float t0 =
+          res::tanh_approx(fmaf(d[4 * (j + 8) + 2 * h], kg.x, bg.x));
+      const float t1 =
+          res::tanh_approx(fmaf(d[4 * (j + 8) + 2 * h + 1], kg.y, bg.y));
+      v[h][j] = res::pack_bf16(fmaf(ha0, t0, ha0), fmaf(ha1, t1, ha1));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t lo[4] = {v[h][0], v[h][1], v[h][2], v[h][3]};
+    uint32_t hi[4] = {v[h][4], v[h][5], v[h][6], v[h][7]};
+    quad_transpose(lo, q);
+    quad_transpose(hi, q);
+    const int sr = sr0 + h;
+    if (sr < H && sc < W) {
+      __nv_bfloat16* o =
+          out + (((size_t)b * 2 * H + 2 * sr + py) * 2 * W + 2 * sc + px) * Co +
+          8 * q;
+      *reinterpret_cast<uint4*>(o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(o + Co / 2) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+}
+
+template <int Ci, int Co>
+__global__ void __launch_bounds__(kThreads, 1)
+upblock_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __nv_bfloat16* __restrict__ wr,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, int B, int H, int W) {
+  using S = Shape<Ci, Co>;
+  extern __shared__ __align__(128) unsigned char clu_smem[];
+  const uint32_t s_w = res::smem_addr(clu_smem);
+  const uint32_t s_ring = s_w + S::kRingOff;
+  const uint32_t full = s_w + S::kBarOff;    // full[2], empty[2], weights
+  const uint32_t empty = full + 8 * kSlots;
+  const uint32_t wbar = empty + 8 * kSlots;
+  float* k = reinterpret_cast<float*>(clu_smem + S::kConstOff);
+  const int rank = cluster_rank();           // this CTA's parity
+  const int cluster = cluster_index(), clusters = cluster_count();
+  const int units_c = (W + res::kCols - 1) / res::kCols;
+  const int per_image = (H + res::kRows - 1) / res::kRows * units_c;
+  const int total = B * per_image;
+  const int n = cluster < total ? (total - 1 - cluster) / clusters + 1 : 0;
+
+  for (int i = threadIdx.x; i < Co; i += kThreads) {
+    k[i] = 0.5f * scale[i];
+    k[Co + i] = 0.5f * bias[i];
+    k[2 * Co + i] = 0.5f * scale[Co + i];
+    k[3 * Co + i] = 0.5f * bias[Co + i];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      // each consumer warp of the four CTAs releases the slot once
+      mbar_init(empty + 8 * s, kCluster * 4);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();   // every CTA's barriers exist before a peer's copies land
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {   // the producer
+      mbar_expect_tx(wbar, S::kWeightBytes);
+      const char* w = reinterpret_cast<const char*>(wr) +
+                      (size_t)rank * S::kWeightBytes;
+      for (uint32_t off = 0; off < S::kWeightBytes; off += kChunkBytes)
+        bulk_load(s_w + off, w + off, kChunkBytes, wbar);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kSlots;
+        // all four CTAs have released the unit this slot held
+        if (i >= kSlots) mbar_wait(empty + 8 * s, (i / kSlots - 1) & 1);
+        mbar_expect_tx(full + 8 * s, S::kTileTx);
+        const res::Unit t(cluster + i * clusters, units_c, per_image);
+        const uint32_t s_tile = s_ring + s * S::kTileBytes;
+        for (int p = rank * S::kPlanesPerRank;
+             p < (rank + 1) * S::kPlanesPerRank; ++p)
+          tma_multicast(s_tile + p * S::kPlaneBytes, &xmap, full + 8 * s,
+                        (1 << kCluster) - 1, 8 * p, t.c0 - 1, t.r0 - 1, t.b);
+      }
+    }
+    __syncwarp();
+  } else {
+    // warpgroup wg takes the cluster's units wg, wg + 2, ... from slot wg;
+    // named barrier 1 + wg is its turn to issue
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int py = rank >> 1, px = rank & 1;
+    const uint32_t s_tile = s_ring + wg * S::kTileBytes;
+    float d0[64] = {}, d1[64] = {};
+    mbar_wait(wbar, 0);
+    for (int i = wg; i < n; i += kSlots) {
+      mbar_wait(full + 8 * wg, (i / kSlots) & 1);
+      if (i > 0) turn_wait(1 + wg);          // the other issued unit i - 1
+      issue_unit<Ci, Co>(d0, d1, s_tile, s_w, py, px);
+      if (i + 1 < n) turn_pass(2 - wg);       // its turn for unit i + 1
+      res::wgmma_wait<0>();
+      fence_acc(d0);
+      fence_acc(d1);
+      if (lane == 0)
+        for (int r = 0; r < kCluster; ++r) mbar_arrive_at(empty + 8 * wg, r);
+      const res::Unit t(cluster + i * clusters, units_c, per_image);
+      const int sr0 = t.r0 + 2 * warp, sc = t.c0 + (lane >> 2);
+      glu_store<Co>(d0, k, out, t.b, sr0, sc, py, px, H, W);
+      glu_store<Co>(d1, k, out, t.b, sr0, sc + 8, py, px, H, W);
+    }
+  }
+  cluster_sync();   // no CTA leaves while a peer may still signal it
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time: the build links
+// no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <int Ci, int Co>
+cudaLaunchConfig_t config(int clusters, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * clusters, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Shape<Ci, Co>::kSmemBytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// clusters of upblock_cluster_kernel<Ci, Co> that the card holds at once
+template <int Ci, int Co>
+int capacity() {
+  cudaError_t e = cudaFuncSetAttribute(
+      upblock_cluster_kernel<Ci, Co>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Shape<Ci, Co>::kSmemBytes);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<Ci, Co>(1, nullptr, &attr);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&n, upblock_cluster_kernel<Ci, Co>,
+                                       &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return n;
+}
+
+template <int Ci, int Co>
+int launch_cluster(const void* x, const void* wr, const float* scale,
+                   const float* bias, void* out, int B, int H, int W,
+                   int clusters, cudaStream_t stream) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // x as (channel, column, row, image); a box is one 8-channel plane of a
+  // tile, rows and columns outside the image read as zeros
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)Ci, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Ci * 2, (cuuint64_t)W * Ci * 2,
+                                 (cuuint64_t)H * W * Ci * 2};
+  const cuuint32_t box[4] = {8, kTC, kTR, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upblock_cluster_kernel<Ci, Co>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Shape<Ci, Co>::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<Ci, Co>(clusters, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, upblock_cluster_kernel<Ci, Co>, map,
+                         static_cast<const __nv_bfloat16*>(wr), scale, bias,
+                         static_cast<__nv_bfloat16*>(out), B, H, W);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+}  // namespace clu
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -714,8 +1210,8 @@ int launch_upblock(int dtype, const void* x, const void* wp,
 }  // namespace attngan
 
 // C entry points. Shapes, types and alignment are checked by the Python
-// wrappers (ops/cuda_upblock.py, ops/cuda_upblock_packed.py); the
-// arguments are re-checked here so that a bad call fails as a CUDA error.
+// wrapper (ops/cuda_upblock.py); the arguments are re-checked here so that
+// a bad call fails as a CUDA error.
 extern "C" int upblock_fused_eval(int dtype, const void* x, const void* wp,
                                   const float* scale, const float* bias,
                                   void* out, int B, int H, int W, int Ci,
@@ -742,4 +1238,31 @@ extern "C" int upblock_fused_eval_resident(const void* x, const void* wr,
     return res::launch_resident<64, 32>(x, wr, scale, bias, out, B, H, W,
                                         grid, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K2, bf16, cluster form, for the (Ci, Co) it is instantiated at: wr is
+// resident_weights' arrangement of all four parities (CTA rank r copies
+// parity r), clusters the number of persistent clusters (at most
+// upblock_cluster_capacity; ops/cuda_upblock.py::cluster_grid).
+extern "C" int upblock_fused_eval_cluster(const void* x, const void* wr,
+                                          const float* scale,
+                                          const float* bias, void* out, int B,
+                                          int H, int W, int Ci, int Co,
+                                          int clusters, void* stream) {
+  using namespace attngan;
+  if (B < 1 || H < 1 || W < 1 || clusters < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Ci == 128 && Co == 64)
+    return clu::launch_cluster<128, 64>(x, wr, scale, bias, out, B, H, W,
+                                        clusters, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of the cluster form at (Ci, Co) that the current device holds
+// at once, or minus the cudaError_t of the query.
+extern "C" int upblock_cluster_capacity(int Ci, int Co) {
+  using namespace attngan;
+  if (Ci == 128 && Co == 64) return clu::capacity<128, 64>();
+  return -(int)cudaErrorInvalidValue;
 }

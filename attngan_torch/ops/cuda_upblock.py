@@ -8,11 +8,15 @@ fp32 on the CUDA cores (Co % 4 == 0). In bf16 at the dims of
 ``RESIDENT_DIMS`` (the serving path's Ci=64 -> Co=32) it is the Hopper form,
 ``upblock_resident_kernel``: persistent blocks that keep every parity's
 weights in shared memory, a cp.async ring of input tiles and wgmma
-products; other bf16 dims take the warp-level ``upblock_mma_kernel``
-(``form`` names the kernel a launch takes). The JAX package's lane-packed
-kernel for those same dims (attngan_tpu/ops/pallas_upblock_packed.py)
-needs no kernel of its own here: its packing fills the TPU's 128 lanes,
-and the resident form is Hopper's kernel for those dims.
+products; at ``CLUSTER_DIMS`` (DM-GAN's Ci=128 -> Co=64, whose weights
+no SM holds) ``upblock_cluster_kernel``: persistent clusters of four CTAs,
+each keeping one parity's weights in shared memory, that share each input
+tile by TMA multicast; other bf16 dims take the warp-level
+``upblock_mma_kernel`` (``form`` names the kernel a launch takes). The JAX
+package's lane-packed kernel for the resident form's dims
+(attngan_tpu/ops/pallas_upblock_packed.py) needs no kernel of its own
+here: its packing fills the TPU's 128 lanes, and the resident form is
+Hopper's kernel for those dims.
 ``upblock_fused_eval`` below is its
 plain version (the same parity decomposition, products accumulated in
 fp32), which the wrapper runs for a CPU tensor and nowhere else. Forward
@@ -63,29 +67,40 @@ def parity_weights(weight: torch.Tensor) -> torch.Tensor:
 # parities of 4*Ci x 64 bf16 weights must fit in shared memory beside the
 # tile ring
 RESIDENT_DIMS = frozenset({(64, 32)})
-# source pixels of one work unit of that kernel (res::kRows, res::kCols)
+# (Ci, Co) at which csrc/upblock.cu instantiates upblock_cluster_kernel,
+# DM-GAN's refinement stages': CTA rank r of a 4-CTA cluster keeps parity
+# r's 4*Ci x 2*Co bf16 weights in shared memory beside the tile ring, and
+# its wgmma consumers take N = 2*Co = 128
+CLUSTER_DIMS = frozenset({(128, 64)})
+# source pixels of one work unit of either kernel (res::kRows, res::kCols)
 UNIT_ROWS, UNIT_COLS = 8, 16
 
 
 def form(dtype: torch.dtype, ci: int, co: int) -> str:
     """The kernel of csrc/upblock.cu that a launch at these dims takes:
     "resident" (``upblock_resident_kernel``) in bf16 at ``RESIDENT_DIMS``,
+    "cluster" (``upblock_cluster_kernel``) in bf16 at ``CLUSTER_DIMS``,
     "mma" (``upblock_mma_kernel``) in bf16 elsewhere, "cuda_cores"
     (``upblock_kernel``) in fp32."""
     if dtype != torch.bfloat16:
         return "cuda_cores"
-    return "resident" if (ci, co) in RESIDENT_DIMS else "mma"
+    if (ci, co) in RESIDENT_DIMS:
+        return "resident"
+    return "cluster" if (ci, co) in CLUSTER_DIMS else "mma"
 
 
-def resident_weights(wp: torch.Tensor) -> torch.Tensor:
-    """Parity weights (4, 4Ci, 2Co) -> the resident kernel's B operand.
+def resident_weights(wp: torch.Tensor,
+                     dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Parity weights (4, 4Ci, 2Co) -> the resident and cluster kernels'
+    B operand, in ``dtype`` (arranged and cast in one copy) or wp's.
 
     wgmma's canonical K-major layout without swizzle: 8 x 8 core matrices
     (8 output channels n, each with 8 consecutive K values k, 16 bytes a
     row), ordered [parity][K/8][2Co/8][n][k]."""
     p, k, n = wp.shape
-    return (wp.reshape(p, k // 8, 8, n // 8, 8).permute(0, 1, 3, 4, 2)
-            .contiguous())
+    arranged = wp.reshape(p, k // 8, 8, n // 8, 8).permute(0, 1, 3, 4, 2)
+    return torch.empty(arranged.shape, dtype=dtype or wp.dtype,
+                       device=wp.device).copy_(arranged)
 
 
 def resident_units(b: int, h: int, w: int) -> int:
@@ -100,9 +115,28 @@ def resident_grid(b: int, h: int, w: int, sms: int) -> int:
     return min(sms, resident_units(b, h, w))
 
 
+def cluster_grid(b: int, h: int, w: int, clusters: int) -> int:
+    """Persistent clusters of the cluster kernel: those the card holds at
+    once, fewer when there are fewer units. Cluster i takes units i,
+    i + grid, ..., and CTA rank r of it parity r of every pixel in them."""
+    return min(clusters, resident_units(b, h, w))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(device: torch.device, ci: int, co: int) -> int:
+    """Clusters of the cluster kernel at (Ci, Co) that the card holds at
+    once (asked once, on the first launch, before any graph capture)."""
+    with torch.cuda.device(device):
+        n = lib().upblock_cluster_capacity(ci, co)
+    if n < 1:
+        raise RuntimeError(f"upblock_fused_eval (cluster): the card holds no "
+                           f"cluster of four at ({ci}, {co}) (status {n})")
+    return n
 
 
 def upblock_fused_eval(x: torch.Tensor, weight: torch.Tensor,
@@ -156,7 +190,7 @@ def check_inputs(name: str, x: torch.Tensor, weight: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
-    """csrc/upblock.cu, built and bound (both of its entry points)."""
+    """csrc/upblock.cu, built and bound (its entry points)."""
     so = _build.load("upblock")
     p, i = ctypes.c_void_p, ctypes.c_int
     so.upblock_fused_eval.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
@@ -164,19 +198,23 @@ def lib() -> ctypes.CDLL:
     so.upblock_fused_eval_resident.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                i, p]
     so.upblock_fused_eval_resident.restype = i
+    so.upblock_fused_eval_cluster.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                              i, p]
+    so.upblock_fused_eval_cluster.restype = i
+    so.upblock_cluster_capacity.argtypes = [i, i]
+    so.upblock_cluster_capacity.restype = i
     return so
 
 
 def kernel_args(x: torch.Tensor, weight: torch.Tensor, bn_k: torch.Tensor,
                 bn_b: torch.Tensor):
-    """(parity weights, scale, bias, output) as both kernels take them."""
+    """(scale, bias, output) as every kernel takes them."""
     b, h, w, _ = x.shape
-    wp = parity_weights(weight).to(x.dtype).contiguous()
     scale = bn_k.to(torch.float32).contiguous()
     bias = bn_b.to(torch.float32).contiguous()
     out = torch.empty((b, 2 * h, 2 * w, weight.shape[0] // 2), dtype=x.dtype,
                       device=x.device)
-    return wp, scale, bias, out
+    return scale, bias, out
 
 
 def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
@@ -193,25 +231,37 @@ def upblock_fused_eval_cuda(x: torch.Tensor, weight: torch.Tensor,
     check_inputs("upblock_fused_eval_cuda", x, weight, bn_k, bn_b)
     b, h, w, ci = x.shape
     co = weight.shape[0] // 2
-    wp, scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
+    scale, bias, out = kernel_args(x, weight, bn_k, bn_b)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    resident = form(x.dtype, ci, co) == "resident"
-    if resident:
-        status = lib().upblock_fused_eval_resident(
-            x.data_ptr(), resident_weights(wp).data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, ci, co,
-            resident_grid(b, h, w, _sm_count(x.device)), stream)
-        _build.check(status, "upblock_fused_eval (resident)")
+    kind = form(x.dtype, ci, co)
+    if kind == "cluster":
+        wr = resident_weights(parity_weights(weight), x.dtype)
+        status = lib().upblock_fused_eval_cluster(
+            x.data_ptr(), wr.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, w, ci, co,
+            cluster_grid(b, h, w, _cluster_capacity(x.device, ci, co)),
+            stream)
+        _build.check(status, "upblock_fused_eval (cluster)")
     else:
-        status = lib().upblock_fused_eval(
-            _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, ci,
-            co, stream)
-        _build.check(status, "upblock_fused_eval")
-    upblock_fused_eval_cuda.resident_launches += resident
+        wp = parity_weights(weight).to(x.dtype).contiguous()
+        if kind == "resident":
+            status = lib().upblock_fused_eval_resident(
+                x.data_ptr(), resident_weights(wp).data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
+                ci, co, resident_grid(b, h, w, _sm_count(x.device)), stream)
+            _build.check(status, "upblock_fused_eval (resident)")
+        else:
+            status = lib().upblock_fused_eval(
+                _build.DTYPE_CODES[x.dtype], x.data_ptr(), wp.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
+                ci, co, stream)
+            _build.check(status, "upblock_fused_eval")
+    upblock_fused_eval_cuda.resident_launches += kind == "resident"
+    upblock_fused_eval_cuda.cluster_launches += kind == "cluster"
     upblock_fused_eval_cuda.launches += 1
     return out
 
 
 upblock_fused_eval_cuda.launches = 0            # kernel launches, any form
 upblock_fused_eval_cuda.resident_launches = 0   # of which the resident form
+upblock_fused_eval_cuda.cluster_launches = 0    # of which the cluster form

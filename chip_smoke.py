@@ -6,9 +6,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 1. import every subpackage of the port through its ``__init__`` and
    resolve each name of its ``__all__`` (neither JAX nor the JAX package
    may load); build the Hopper kernels from attngan_torch/csrc/ (one nvcc
-   each, at once), with each kernel's registers and spills from ptxas; the streaming
-   K1 kernel, the resident K2 kernel and the tensor-core DAMSM forward and
-   backward must not spill;
+   each, at once), with each kernel's registers and spills from ptxas; the
+   streaming K1 kernel, the resident and cluster K2 kernels and the
+   tensor-core DAMSM forward and backward must not spill;
 2. hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's gen2 (64^2) and gen3 (128^2) shapes: fp32
    and bf16 at batch 8, bf16 at the GAN step's batch 16 (K1's shapes in the
@@ -79,14 +79,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    timed (L2 cold) beside its bound (bytes at 3.35 TB/s or operations at
    989 TFLOP/s, the larger) and its plain version, and in fp32 and bf16
    at odd shapes over L in {1, 8, 18}; K2 at DM-GAN's (Ci, Co) = (128,
-   64), whose resident form cannot hold its weights, in its mma form
-   against the plain version and the plain serving chain; K1's AttnGAN
+   64) in its cluster form (one ``cluster_launches`` a call) against the
+   plain version, timed beside its bound (operations at 989 TFLOP/s),
+   PyTorch's plain serving chain (``chain_ms``) and the same chain with
+   K8's BN -> GLU (``chain_k8_ms``); K1's AttnGAN
    form at the serving shapes (64 rows, C 32, L 5 and 18), timed as
    phase 2 times it, to show that the memory form left it as it was; the
-   DM-GAN sampler's eager call, capture and replay (the memory form
-   launched 2, 2 and 0 times by the host, the replay's 2 by
-   torch.profiler's count), img/s over 4 windows of 10 calls and the
-   memory reserved;
+   DM-GAN sampler's eager call, capture and replay (the memory form and
+   K2's cluster form each launched 2, 2 and 0 times by the host, the
+   replay's 2 each by torch.profiler's count), img/s over 4 windows of 10
+   calls and the memory reserved;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -261,7 +263,7 @@ FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores (TF32 is off)
 TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 # kernels that must not spill (ptxas)
 NO_SPILL = ("word_attention_stream_kernel", "memread_stream_kernel",
-            "upblock_resident_kernel",
+            "upblock_resident_kernel", "upblock_cluster_kernel",
             "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel",
             "bn_epilogue_kernel", "bilstm_kernel")
 L2_BYTES = 50 * 2 ** 20
@@ -4350,6 +4352,7 @@ def memread_phase(torch, card_name: str) -> tuple:
         upblock_fused_eval,
         upblock_fused_eval_cuda as k2,
     )
+    from attngan_torch.ops.layers import conv, upsample_nearest_2x
 
     g = torch.Generator("cuda").manual_seed(25)
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
@@ -4405,30 +4408,42 @@ def memread_phase(torch, card_name: str) -> tuple:
                              device="cuda") * (9 * ci) ** -0.5
         bn_k = torch.rand(2 * co, generator=g, device="cuda") + 0.5
         bn_b = 0.1 * torch.randn(2 * co, generator=g, device="cuda")
-        before, resident = k2.launches, k2.resident_launches
+        before = (k2.launches, k2.resident_launches, k2.cluster_launches)
         got = k2(x, weight, bn_k, bn_b)
         torch.cuda.synchronize()
         form = upblock_form(x.dtype, ci, co)
-        fail_unless(form == "mma" and k2.launches == before + 1
-                    and k2.resident_launches == resident,
-                    f"K2 at ({ci}, {co}): the {form} form")
+        fail_unless(form == "cluster" and (
+            k2.launches, k2.resident_launches, k2.cluster_launches) == (
+                before[0] + 1, before[1], before[2] + 1),
+            f"K2 at ({ci}, {co}): the {form} form")
         want = upblock_fused_eval(x, weight, bn_k, bn_b)
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL["bfloat16"])
+        fail_unless(torch.equal(k2(x, weight, bn_k, bn_b), got),
+                    f"K2's cluster form at {hw}^2: other bits on a relaunch")
         moved = nbytes(x, weight.to(torch.bfloat16), bn_k, bn_b, got)
         flops = 2 * BATCH * (2 * hw) ** 2 * (2 * co) * (4 * ci)
         bound = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
         ms = time_ms(lambda: k2(x, weight, bn_k, bn_b))
+        plain_ms = time_ms(lambda: upblock_fused_eval(x, weight, bn_k, bn_b))
         chain = upblock_chain(torch, weight, bn_k, bn_b, torch.bfloat16)
         nchw = x.permute(0, 3, 1, 2)
         with torch.inference_mode():
             chain_ms = time_ms(lambda: chain(nchw))
+            # the same chain with K8's BN -> GLU, as ops/layers.py::UpBlock
+            # runs it below 64^2
+            chain_k8_ms = time_ms(lambda: chain.bn.forward_glu(
+                conv(upsample_nearest_2x(nchw), chain.conv, torch.bfloat16),
+                True))
+        fail_unless(ms < chain_ms, f"K2's cluster form at {hw}^2: {ms} ms, "
+                    f"cuDNN's chain {chain_ms} ms")
         print(json.dumps({
             "phase": "memread", "step": "k2", "shape": [BATCH, hw, hw, ci],
             "co": co, "form": form,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": ms, "chain_ms": chain_ms, "bound_ms": bound,
-            "roofline_pct": 100 * bound / ms, "card": card_name}), flush=True)
+            "ms": ms, "bound_ms": bound, "roofline_pct": 100 * bound / ms,
+            "plain_ms": plain_ms, "chain_ms": chain_ms,
+            "chain_k8_ms": chain_k8_ms, "card": card_name}), flush=True)
 
     # K1's AttnGAN form at the serving shapes, timed as phase 2 times it
     for l in (SEQ_LEN, DMGAN_SEQ):
@@ -4464,14 +4479,17 @@ def memread_phase(torch, card_name: str) -> tuple:
                            device="cuda")
     tokens = torch.where(torch.arange(DMGAN_SEQ, device="cuda")
                          < lengths.cuda()[:, None], tokens, 0)
-    rises, images = [], []
+    rises, images, k2_rises = [], [], []
     for _ in range(3):                              # eager, capture, replay
-        before = memory_read_cuda.launches
+        before = memory_read_cuda.launches, k2.cluster_launches
         images.append(sampler.generate_from_tokens(tokens, lengths).clone())
         torch.cuda.synchronize()
-        rises.append(memory_read_cuda.launches - before)
+        rises.append(memory_read_cuda.launches - before[0])
+        k2_rises.append(k2.cluster_launches - before[1])
     fail_unless(rises == [2, 2, 0], f"DM-GAN memory reads {rises}, "
                 f"expected [2, 2, 0]")
+    fail_unless(k2_rises == [2, 2, 0], f"DM-GAN K2 cluster launches "
+                f"{k2_rises}, expected [2, 2, 0]")
     paths = (sampler.eager_calls, sampler.captures, sampler.replays)
     fail_unless(paths == (1, 1, 2), f"DM-GAN eager calls, captures, "
                 f"replays {paths}, expected (1, 1, 2)")
@@ -4488,9 +4506,14 @@ def memread_phase(torch, card_name: str) -> tuple:
         torch, lambda: sampler.generate_from_tokens(tokens, lengths))
     k10 = sum(n for k, n in replayed.items() if "memread" in k)
     fail_unless(k10 == 2, f"a DM-GAN replay ran the memory form {k10} times")
+    k2_cluster = sum(n for k, n in replayed.items()
+                     if "upblock_cluster" in k)
+    fail_unless(k2_cluster == 2, f"a DM-GAN replay ran K2's cluster form "
+                f"{k2_cluster} times")
     print(json.dumps({
         "phase": "memread", "step": "serve", "batch": BATCH,
         "memread_launches": rises, "paths": paths, "replay_memread": k10,
+        "k2_cluster_launches": k2_rises, "replay_k2_cluster": k2_cluster,
         "replay_kernels": sum(replayed.values()),
         "img_per_s": statistics.median(windows), "windows": windows,
         "reserved_bytes": torch.cuda.memory_reserved(),

@@ -20,7 +20,8 @@ one; the file imports no JAX:
   raises; it never runs the plain version.
 - The DM-GAN sampler: a shape's first call eager, its second a capture,
   the rest replays, agreeing within the bf16 tolerance; the memory form
-  launched twice by the host on the eager call and on the capture and
+  and K2's cluster form (its two refinement UpBlocks, Ci=128 -> Co=64)
+  each launched twice by the host on the eager call and on the capture and
   never on a replay, whose own kernels CUPTI counts instead: the eager
   call's, the memory form twice. fp32 at batch 2 (TF32 off): eager and
   replayed images and maps against the port's CPU run at 1e-3 (cuDNN's
@@ -39,6 +40,7 @@ from attngan_torch.core.config import GanConfig
 from attngan_torch.infer.sampler import InferState, Sampler
 from attngan_torch.ops.attention import memory_read
 from attngan_torch.ops.cuda_attention import memory_read_cuda
+from attngan_torch.ops.cuda_upblock import upblock_fused_eval_cuda
 from attngan_torch.ops.int8 import intercepting
 
 pytestmark = pytest.mark.cuda
@@ -151,11 +153,14 @@ def test_graph_path_agrees_and_launches_from_the_host_once(cuda):
     b = batch(cuda, 64)
     rises, outs = [], []
     for _ in range(3):                              # eager, capture, replay
-        before = memory_read_cuda.launches
+        before = (memory_read_cuda.launches,
+                  upblock_fused_eval_cuda.cluster_launches)
         images, attns = sampler.generate_stages(*b)
         outs.append(([i.clone() for i in images], [a.clone() for a in attns]))
-        rises.append(memory_read_cuda.launches - before)
-    assert rises == [2, 2, 0]
+        rises.append((memory_read_cuda.launches - before[0],
+                      upblock_fused_eval_cuda.cluster_launches - before[1]))
+    # the memory form and K2's cluster form, twice each a call
+    assert rises == [(2, 2), (2, 2), (0, 0)]
     assert (sampler.eager_calls, sampler.captures, sampler.replays) == (1, 1, 2)
     images, attns = outs[0]
     assert [i.shape for i in images] == [(64, r, r, 3) for r in (64, 128, 256)]

@@ -18,11 +18,12 @@ one; the file imports no JAX:
 - Weights loaded in place (``load_state_dict``) reach the next replay;
   weights moved elsewhere drop the graphs, and the next call runs eagerly.
 - The kernel wrappers' launch counters count the host's launches: K1 2,
-  K2 2 (the resident form) and K9 1 (the text encoder, inside the graph
-  since it reads the lengths on the card) on the eager call and on the
-  capture, nothing on a replay. The replay's own launches are measured instead:
-  under torch.profiler (CUPTI) a replayed call runs the eager call's
-  kernels, by name and count (memsets and copies aside), K1 and K2 twice.
+  K2 2 (the resident form; none the cluster form) and K9 1 (the text
+  encoder, inside the graph since it reads the lengths on the card) on the
+  eager call and on the capture, nothing on a replay. The replay's own
+  launches are measured instead: under torch.profiler (CUPTI) a replayed
+  call runs the eager call's kernels, by name and count (memsets and
+  copies aside), K1 and K2 twice.
 """
 
 from collections import Counter
@@ -179,6 +180,7 @@ def test_weights_moved_elsewhere_drop_the_graphs(cuda):
 
 def counters() -> list:
     return [upblock_fused_eval_cuda.resident_launches,
+            upblock_fused_eval_cuda.cluster_launches,
             upblock_fused_eval_cuda.launches, word_attention_cuda.launches,
             bilstm_cuda.launches]
 
@@ -192,8 +194,9 @@ def test_launch_counters_count_the_hosts_launches(cuda, rows, seq_len):
         start = counters()
         sampler.generate_stages(*b)
         rises.append([c - s for c, s in zip(counters(), start)])
-    # K2 resident, K2, K1, K9: a replay launches nothing from the host
-    assert rises == [[2, 2, 2, 1], [2, 2, 2, 1], [0, 0, 0, 0]]
+    # K2 resident, K2 cluster, K2, K1, K9: a replay launches nothing from
+    # the host
+    assert rises == [[2, 0, 2, 2, 1], [2, 0, 2, 2, 1], [0, 0, 0, 0, 0]]
     assert sampler.replays == 2
 
 

@@ -10,8 +10,10 @@ Tolerances: fp32 at 1e-4 absolute (the same arithmetic in another summation
 order, TF32 off). bf16 outputs at 1e-2 absolute plus 2^-7 relative: one
 bf16 rounding step that a difference in fp32 summation order can flip.
 The bf16 UpBlock at Ci=64 -> Co=32 takes the resident-weight wgmma
-kernel, counted by ``upblock_fused_eval_cuda.resident_launches``. Word
-attention (K1) gives the same bits on a second launch.
+kernel, counted by ``upblock_fused_eval_cuda.resident_launches``, and at
+DM-GAN's Ci=128 -> Co=64 the cluster kernel, counted by
+``cluster_launches``. Both, and word attention (K1), give the same bits on
+a second launch.
 Attention maps are fp32 in both versions: 1e-5. The DAMSM similarity
 (fp32 end to end): sims within 1e-4 relative and 1e-5 absolute; gradients
 within 1e-3 relative plus 1e-5 of the largest entry (the kernel forms the
@@ -202,18 +204,38 @@ def test_upblock_resident_kernel_matches_plain(cuda, b, h, w, ci, co):
     assert torch.equal(upblock_fused_eval_cuda(*args), got)   # same bits
 
 
-@pytest.mark.parametrize("dtype,ci,co", [(torch.bfloat16, 128, 64),
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (64, 64, 64, 128, 64),    # DM-GAN's first refinement UpBlock at 64
+    (8, 128, 128, 128, 64),   # the second's shape: the clusters' loop wraps
+    (2, 20, 36, 128, 64),     # ragged units in both directions
+    (3, 17, 40, 128, 64),     # odd batch, one unit row of 1 source row
+    (1, 8, 16, 128, 64),      # one unit: one cluster, one warpgroup busy
+])
+def test_upblock_cluster_kernel_matches_plain(cuda, b, h, w, ci, co):
+    args = _upblock_args(cuda, b, h, w, ci, co, torch.bfloat16)
+    k2 = upblock_fused_eval_cuda
+    before = (k2.launches, k2.resident_launches, k2.cluster_launches)
+    got = k2(*args)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.resident_launches, k2.cluster_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(k2(*args), got)   # same bits
+
+
+@pytest.mark.parametrize("dtype,ci,co", [(torch.bfloat16, 32, 16),
                                          (torch.bfloat16, 16, 8),
                                          (torch.float32, 64, 32)])
 def test_upblock_other_dims_keep_the_warp_level_kernel(cuda, dtype, ci, co):
     args = _upblock_args(cuda, 1, 9, 17, ci, co, dtype)
-    before = (upblock_fused_eval_cuda.launches,
-              upblock_fused_eval_cuda.resident_launches)
-    got = upblock_fused_eval_cuda(*args)
+    k2 = upblock_fused_eval_cuda
+    before = (k2.launches, k2.resident_launches, k2.cluster_launches)
+    got = k2(*args)
     torch.cuda.synchronize()
-    assert (upblock_fused_eval_cuda.launches,
-            upblock_fused_eval_cuda.resident_launches) == (before[0] + 1,
-                                                           before[1])
+    assert (k2.launches, k2.resident_launches, k2.cluster_launches) == (
+        before[0] + 1, before[1], before[2])
     torch.testing.assert_close(got.float(), upblock_fused_eval(*args).float(),
                                **TOL[dtype])
 

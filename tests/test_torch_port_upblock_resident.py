@@ -1,11 +1,15 @@
-"""What the resident-weight K2 kernel takes from Python, checked on the CPU.
+"""What the resident-weight and cluster K2 kernels take from Python, checked
+on the CPU.
 
-csrc/upblock.cu::upblock_resident_kernel runs only on the card (marker
-``cuda`` in tests/test_torch_cuda_kernels.py holds it against the plain
-version). Its B operand and its work-unit plan are made in Python, in
-ops/cuda_upblock.py: the arranged weights must unpack to the parity weights
-exactly, and the persistent blocks' units must cover every output pixel
-exactly once, ragged edges included. Which of csrc/upblock.cu's kernels
+csrc/upblock.cu::upblock_resident_kernel and upblock_cluster_kernel run only
+on the card (marker ``cuda`` in tests/test_torch_cuda_kernels.py holds them
+against the plain version). Their B operand and their work-unit plans are
+made in Python, in ops/cuda_upblock.py: the arranged weights must unpack to
+the parity weights exactly (each cluster rank's slice to its parity's), the
+persistent blocks' units, and the clusters' units with the four ranks'
+parities, must cover every output pixel exactly once, ragged edges
+included, and each form's shared memory must fit an SM. Which of
+csrc/upblock.cu's kernels
 a launch takes is a pure function of the type and the dims (``form``), and
 what the kernels do not take is refused before a launch
 (``check_inputs``): both are checked here.
@@ -17,10 +21,12 @@ import torch
 
 import torch_threads  # noqa: F401  (torch threads under xdist)
 from attngan_torch.ops.cuda_upblock import (
+    CLUSTER_DIMS,
     RESIDENT_DIMS,
     UNIT_COLS,
     UNIT_ROWS,
     check_inputs,
+    cluster_grid,
     form,
     parity_weights,
     resident_grid,
@@ -84,6 +90,71 @@ def test_resident_route_is_the_serving_dims():
         assert 4 * 4 * ci * 2 * co * 2 + 4 * ci // 8 * 2960 <= 227 * 1024
 
 
+SMEM_PER_BLOCK = 232448    # the H100's shared memory a block can use
+CLUSTER_CTAS = 4           # CTAs of a cluster of the cluster kernel: rank r
+                           # keeps parity r (csrc/upblock.cu::clu::kCluster)
+
+
+def test_cluster_weights_slice_per_rank(rng):
+    ci, co = 128, 64
+    assert (ci, co) in CLUSTER_DIMS
+    weight = torch.from_numpy(
+        rng.standard_normal((2 * co, ci, 3, 3)).astype(np.float32))
+    wp32 = parity_weights(weight)
+    wp = wp32.to(torch.bfloat16)
+    # arranged and cast in one copy, as the wrapper makes it: the same bits
+    # as cast, then arranged
+    wr = resident_weights(wp32, torch.bfloat16)
+    assert wr.is_contiguous() and wr.dtype == torch.bfloat16
+    assert torch.equal(wr, resident_weights(wp))
+    # CTA rank r copies the r-th CLUSTER_CTAS-th of the bytes: parity r
+    flat = wr.reshape(CLUSTER_CTAS, -1)
+    for rank in range(CLUSTER_CTAS):
+        piece = flat[rank].reshape(4 * ci // 8, 2 * co // 8, 8, 8)
+        assert piece.numel() * 2 == 4 * ci * 2 * co * 2     # 128 KB
+        assert torch.equal(piece.permute(0, 3, 1, 2).reshape(4 * ci, 2 * co),
+                           wp[rank])
+
+
+@pytest.mark.parametrize("b,h,w,clusters", [
+    (64, 64, 64, 32), (64, 128, 128, 33), (2, 20, 36, 32), (3, 17, 40, 7),
+    (1, 8, 16, 32), (1, 5, 3, 2), (4, 9, 33, 5), (8, 128, 128, 30)])
+def test_cluster_units_and_ranks_cover_every_output_pixel_once(b, h, w,
+                                                                clusters):
+    grid = cluster_grid(b, h, w, clusters)
+    units = resident_units(b, h, w)
+    assert grid == min(clusters, units) and grid >= 1
+    hits = np.zeros((b, 2 * h, 2 * w), np.int64)
+    for cluster in range(grid):            # the kernel's static stride
+        for u in range(cluster, units, grid):
+            img, r0, c0 = unit_origin(u, h, w)
+            assert r0 < h and c0 < w
+            rows = slice(2 * r0, 2 * min(r0 + UNIT_ROWS, h))
+            cols = slice(2 * c0, 2 * min(c0 + UNIT_COLS, w))
+            for rank in range(CLUSTER_CTAS):   # rank r writes parity r
+                py, px = divmod(rank, 2)
+                block = hits[img, rows, cols]
+                block[py::2, px::2] += 1
+    assert (hits == 1).all()
+
+
+def test_cluster_route_fits_an_sm():
+    # a plane of a tile, (8+2) x (16+2) pixels x 8 bf16 channels as its TMA
+    # box lands, 128-byte aligned for TMA (clu::Shape::kPlaneBytes)
+    plane = -(-(UNIT_ROWS + 2) * (UNIT_COLS + 2) * 16 // 128) * 128
+    assert plane == 2944
+    for ci, co in CLUSTER_DIMS:
+        assert 2 * co == 128 and ci % 16 == 0         # m64n128k16 consumers
+        assert ci // 8 % CLUSTER_CTAS == 0     # each rank a quarter of the
+        # tile's planes
+        # one parity's bf16 weights (128 KB), a ring of two tiles, five
+        # mbarriers (64 bytes) and the halved BN constants: 226,368 bytes
+        smem = 4 * ci * 2 * co * 2 + 2 * ci // 8 * plane + 64 + 4 * co * 4
+        assert smem <= SMEM_PER_BLOCK
+        # four parities would not fit: the reason for the cluster
+        assert 4 * 4 * ci * 2 * co * 2 > SMEM_PER_BLOCK
+
+
 def test_resident_counter_untouched_on_cpu(rng):
     x = torch.from_numpy(rng.standard_normal((1, 8, 8, 64)).astype(
         np.float32)).bfloat16()
@@ -91,18 +162,22 @@ def test_resident_counter_untouched_on_cpu(rng):
         (rng.standard_normal((64, 64, 3, 3)) * 0.05).astype(np.float32))
     k, b = torch.ones(64), torch.zeros(64)
     before = (upblock_fused_eval_cuda.launches,
-              upblock_fused_eval_cuda.resident_launches)
+              upblock_fused_eval_cuda.resident_launches,
+              upblock_fused_eval_cuda.cluster_launches)
     assert torch.equal(upblock_fused_eval_cuda(x, weight, k, b),
                        upblock_fused_eval(x, weight, k, b))
     assert (upblock_fused_eval_cuda.launches,
-            upblock_fused_eval_cuda.resident_launches) == before
+            upblock_fused_eval_cuda.resident_launches,
+            upblock_fused_eval_cuda.cluster_launches) == before
 
 
 # --- which kernel, and what none of them takes ------------------------------
 
 @pytest.mark.parametrize("dtype,ci,co,want", [
-    (torch.bfloat16, 64, 32, "resident"), (torch.bfloat16, 128, 64, "mma"),
-    (torch.bfloat16, 32, 16, "mma"), (torch.float32, 64, 32, "cuda_cores"),
+    (torch.bfloat16, 64, 32, "resident"), (torch.bfloat16, 128, 64, "cluster"),
+    (torch.bfloat16, 32, 16, "mma"), (torch.bfloat16, 48, 24, "mma"),
+    (torch.float32, 64, 32, "cuda_cores"),
+    (torch.float32, 128, 64, "cuda_cores"),
     (torch.float32, 16, 8, "cuda_cores")])
 def test_form_by_type_and_dims(dtype, ci, co, want):
     assert form(dtype, ci, co) == want
