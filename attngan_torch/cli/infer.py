@@ -20,9 +20,14 @@ first two captions (--swap).
 three stages, a dynamic memory in place of word attention, its memory
 addressing maps saved by --save-attention; no --export), --generator
 dfgan DF-GAN's (models/dfgan.py: one 256^2 stage, no attention maps, so
-no --save-attention or --export), through the same sampler; a checkpoint
+no --save-attention or --export), --generator galip GALIP's
+(models/galip.py: one 224^2 stage behind CLIP's text transformer, no
+attention maps or --export), through the same sampler; a checkpoint
 records its family, and one written before the field existed holds
-AttnGAN's.
+AttnGAN's. GALIP serves a save_infer_state .pt or random weights, and
+--benchmark draws its ids in CLIP's layout (SOT, ids, EOT, then 0);
+--image-names is refused for it, since CLIP's BPE tokenizer needs its
+vocabulary file, which the repository does not hold.
 
 Every command line of JAX's ``cli.infer`` parses: --df-dim and
 --image-encoder, which the generator does not read, are checked against
@@ -76,6 +81,10 @@ BENCH_WINDOWS, BENCH_ITERS = 5, 4
 # generator, so --df-dim and --image-encoder do nothing else.
 MODEL_FLAGS = ("num_stages", "gf_dim", "df_dim", "emb_dim", "seq_len",
                "image_encoder", "generator")
+GALIP_CAPTIONS = ("--image-names: GALIP reads captions through CLIP's BPE "
+                  "tokenizer, whose vocabulary file (bpe_simple_vocab_16e6"
+                  ".txt.gz) the repository does not hold; serve it with "
+                  "--benchmark, or through Sampler with CLIP token ids")
 
 
 def parse_args(argv=None):
@@ -105,10 +114,11 @@ def parse_args(argv=None):
     p.add_argument("--generator", default=None, choices=list(GENERATORS),
                    help="the generator family: 'attngan' (3 stages, word "
                         "attention; the default), 'dmgan' (DM-GAN's 3 "
-                        "stages, a dynamic memory of the words) or 'dfgan' "
+                        "stages, a dynamic memory of the words), 'dfgan' "
                         "(DF-GAN's one 256^2 stage, text fused into every "
-                        "block); checked against the checkpoint's recorded "
-                        "value")
+                        "block) or 'galip' (GALIP's one 224^2 stage and "
+                        "CLIP bridge, under CLIP's text transformer); "
+                        "checked against the checkpoint's recorded value")
     p.add_argument("--num-stages", type=int, default=None, choices=[1, 2, 3])
     p.add_argument("--gf-dim", type=int, default=None)
     p.add_argument("--df-dim", type=int, default=None,
@@ -255,6 +265,8 @@ def _load_state(args, cfg, shapes, handler):
                                os.path.join(directory, "config.json"))
         state = restore_inference_state(ckpt, replace(cfg, **recorded))
         source = ckpt
+    if args.image_names and state.cfg.generator == "galip":
+        raise SystemExit(GALIP_CAPTIONS)
     if args.image_names and handler.vocab_size != state.vocab_size:
         raise SystemExit(
             f"{args.captions_path} gives a vocabulary of "
@@ -271,9 +283,18 @@ def _benchmark(sampler, args, windows: int = BENCH_WINDOWS,
 
     cfg = sampler.cfg
     rng = np.random.default_rng(args.seed)
-    tokens = torch.as_tensor(rng.integers(
-        0, sampler.state.vocab_size, (args.batch_size, cfg.seq_len)))
-    lengths = torch.full((args.batch_size,), cfg.seq_len)
+    vocab = sampler.state.vocab_size
+    if cfg.generator == "galip":    # CLIP's layout, the context filled
+        from attngan_torch.models.clip import clip_layout
+
+        lengths = torch.full((args.batch_size,), cfg.seq_len - 2)
+        tokens = clip_layout(torch.as_tensor(rng.integers(
+            1, vocab - 2, (args.batch_size, cfg.seq_len - 2))), lengths,
+            cfg.seq_len, vocab)
+    else:
+        tokens = torch.as_tensor(rng.integers(
+            0, vocab, (args.batch_size, cfg.seq_len)))
+        lengths = torch.full((args.batch_size,), cfg.seq_len)
     gen = torch.Generator(sampler.device).manual_seed(args.seed)
 
     def sync():
@@ -428,6 +449,8 @@ def _main(args, device):
     from attngan_torch.parallel.mesh import make_mesh
 
     handler = None
+    if args.image_names and args.generator == "galip":
+        raise SystemExit(GALIP_CAPTIONS)
     if args.image_names or os.path.exists(args.captions_path):
         handler = CaptionHandler(args.captions_path)
     cfg, shapes = _config(args)

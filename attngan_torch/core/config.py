@@ -103,26 +103,40 @@ class GanConfig:
     # as DamsmConfig.fused_similarity; False runs the plain form.
     fused_similarity: bool = True
     # the generator family that InferState builds (infer/sampler.py's
-    # GENERATORS): "attngan", the 3-stage attentional generator
-    # (models/generator.py); "dmgan", DM-GAN's 3-stage generator, whose
-    # next stages read a dynamic memory of the words instead of attending
-    # to them (models/dmgan.py: gf_dim is its N_r, 2 gf_dim its memory
-    # width); or "dfgan", DF-GAN's one-stage 256^2 generator
-    # (models/dfgan.py: gf_dim is its nf, z_dim + emb_dim its condition;
-    # cond_dim and num_stages are not read). The GAN step trains "attngan"
-    # only.
+    # GENERATORS), one of four: "attngan", the 3-stage attentional
+    # generator (models/generator.py); "dmgan", DM-GAN's 3-stage
+    # generator, whose next stages read a dynamic memory of the words
+    # instead of attending to them (models/dmgan.py: gf_dim is its N_r,
+    # 2 gf_dim its memory width); "dfgan", DF-GAN's one-stage 256^2
+    # generator (models/dfgan.py: gf_dim is its nf, z_dim + emb_dim its
+    # condition; cond_dim and num_stages are not read); or "galip",
+    # GALIP's one-stage imsize^2 generator with its CLIP bridge, under
+    # CLIP's text transformer in place of the BiLSTM (models/galip.py,
+    # models/clip.py: gf_dim is its nf, emb_dim CLIP's embedding width,
+    # seq_len CLIP's context). The GAN step trains "attngan" only.
     generator: str = "attngan"
+    # GALIP's widths (read by "galip" only), CLIP ViT-B/32's by default:
+    # the text transformer's width and heads, the bridge's ViT blocks'
+    # (the depths and the image's side are constants of models/clip.py
+    # and models/galip.py)
+    clip_width: int = 512
+    clip_heads: int = 8
+    vit_width: int = 768
+    vit_heads: int = 12
 
     @property
     def resolutions(self) -> Tuple[int, ...]:
         if self.generator == "dfgan":
             return (256,)
+        if self.generator == "galip":
+            return (224,)
         return (64, 128, 256)[: self.num_stages]
 
 
 # the fields that fix the weights' shapes (a checkpoint records them)
 SHAPE_FIELDS = ("gf_dim", "df_dim", "emb_dim", "cond_dim", "z_dim",
-                "seq_len", "num_stages", "generator")
+                "seq_len", "num_stages", "generator", "clip_width",
+                "clip_heads", "vit_width", "vit_heads")
 
 
 @dataclass(frozen=True)

@@ -8,7 +8,10 @@ reproduces); otherwise they come from an explicit ``torch.Generator``.
 (models/dmgan.py) on the same path: AttnGAN's stages and outputs, each
 attention map a memory stage's addressing weights; "dfgan" serves
 DF-GAN's (models/dfgan.py): one 256^2 stage, no attention maps, eps drawn
-or taken and not read.
+or taken and not read; "galip" serves GALIP's (models/galip.py) behind
+CLIP's text transformer (models/clip.py) in place of the BiLSTM: tokens
+in CLIP's layout, the sentence pooled at EOT on the device, no word
+features or mask, one imsize^2 stage and no attention maps.
 
 Data parallel (``Sampler(mesh=)``, JAX's ``Sampler(mesh=)``): every rank
 is given the whole batch's tokens, draws the whole batch's noise and eps,
@@ -16,10 +19,11 @@ samples its own rows, and the images are gathered (``gather``) so that
 rank 0 can write them.
 
 On one CUDA device a call runs as a CUDA graph, one per input shape
-(``Sampler.replayable`` says when): the text encoder (its K9 form, which
-reads the lengths on the device; models/rnn_encoder.py), the word mask and
-the generator. A shape's first call runs eagerly, which builds the kernels
-and warms cuDNN; its second captures the three on static buffers of
+(``Sampler.replayable`` says when): the text encoder (the BiLSTM's K9
+form, which reads the lengths on the device, models/rnn_encoder.py; or
+CLIP's text tower), the word mask and the generator. A shape's first call
+runs eagerly, which builds the kernels and warms cuDNN; its second
+captures the three on static buffers of
 (tokens, lengths, noise, eps), keyed by their shapes and dtypes, so that
 the lengths are data and one graph serves every mix of them; from then on
 a call copies its inputs into the buffers and replays the graph: the host
@@ -50,8 +54,10 @@ import torch.nn as nn
 from attngan_torch.core.config import SHAPE_FIELDS, GanConfig, replace
 from attngan_torch.core.runtime import resolve_device, to_device
 from attngan_torch.data.dataset import word_mask
+from attngan_torch.models.clip import CLIPText
 from attngan_torch.models.dfgan import DFGenerator
 from attngan_torch.models.dmgan import DMGenerator
+from attngan_torch.models.galip import GALIPGenerator
 from attngan_torch.models.generator import Generator
 from attngan_torch.models.rnn_encoder import BiLSTMEncoder
 from attngan_torch.ops import int8
@@ -66,7 +72,7 @@ def denormalize(images: torch.Tensor) -> torch.Tensor:
 
 # the generator families, by GanConfig.generator
 GENERATORS = {"attngan": Generator, "dmgan": DMGenerator,
-              "dfgan": DFGenerator}
+              "dfgan": DFGenerator, "galip": GALIPGenerator}
 
 
 def build_generator(cfg: GanConfig) -> nn.Module:
@@ -79,14 +85,24 @@ def build_generator(cfg: GanConfig) -> nn.Module:
 
 class InferState(nn.Module):
     """What sampling touches: the text encoder and the generator (of the
-    family ``cfg.generator`` names)."""
+    family ``cfg.generator`` names). The encoder is the BiLSTM (``rnn``)
+    of the three families that read words, CLIP's text tower
+    (``text_encoder``) of "galip"; ``encoder`` is whichever it is."""
 
     def __init__(self, cfg: GanConfig, vocab_size: int):
         super().__init__()
         self.cfg = cfg
         self.vocab_size = vocab_size
-        self.rnn = BiLSTMEncoder(vocab_size, hidden_dim=cfg.emb_dim)
+        if cfg.generator == "galip":
+            self.text_encoder = CLIPText.from_config(cfg, vocab_size)
+        else:
+            self.rnn = BiLSTMEncoder(vocab_size, hidden_dim=cfg.emb_dim)
         self.generator = build_generator(cfg)
+
+    @property
+    def encoder(self) -> nn.Module:
+        return (self.text_encoder if self.cfg.generator == "galip"
+                else self.rnn)
 
 
 def save_infer_state(path: str, state: InferState) -> None:
@@ -150,7 +166,7 @@ class Sampler:
         int8 interceptor."""
         return (self.device.type == "cuda" and self.mesh is None
                 and not self.state.generator.training
-                and not self.state.rnn.training
+                and not self.state.encoder.training
                 and not torch.is_grad_enabled() and not int8.active())
 
     def _call(self, *inputs: torch.Tensor
@@ -186,8 +202,9 @@ class Sampler:
         with span("attngan.text_encoder"):
             tokens = to_device(tokens, self.device)
             lengths = to_device(lengths, self.device)
-            word_embs, sent_embs = self.state.rnn(tokens, lengths)
-            mask = word_mask(lengths, tokens.shape[1])
+            word_embs, sent_embs = self.state.encoder(tokens, lengths)
+            mask = (None if word_embs is None
+                    else word_mask(lengths, tokens.shape[1]))
         return self._generator(to_device(noise, self.device), sent_embs,
                                word_embs, mask, to_device(eps, self.device))
 
@@ -228,7 +245,7 @@ class Sampler:
             return
         self._graphs.clear()
         ends = []
-        for module in (self.state.rnn, self.state.generator):
+        for module in (self.state.encoder, self.state.generator):
             params = list(module.parameters())
             ends += [params[0], params[-1]]
         self._ends = tuple(ends)

@@ -79,8 +79,9 @@ class Affine(nn.Module):
 class DFBlock(nn.Module):
     """DF-GAN's DFBLK: affine -> LeakyReLU -> affine -> LeakyReLU, one K7
     launch. ``upsample``: x is the (B, C, H, W) map before a nearest 2x
-    upsample, and the output is (B, C, 2H, 2W). ``shift`` (C,): the layer
-    of x + shift, the shift folded into the first affine's (fp32) as
+    upsample, and the output is (B, C, 2H, 2W); ``size`` (Ho, Wo): before
+    a nearest resize to that size (K7's resize form). ``shift`` (C,): the
+    layer of x + shift, the shift folded into the first affine's (fp32) as
     b0 + g0 * shift."""
 
     def __init__(self, cond_dim: int, features: int):
@@ -90,12 +91,14 @@ class DFBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 upsample: bool = False,
-                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                shift: Optional[torch.Tensor] = None,
+                size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         (g0, b0), (g1, b1) = self.affine0(cond), self.affine1(cond)
         if shift is not None:
             b0 = b0 + g0 * shift.float()
         nhwc = x.permute(0, 2, 3, 1).contiguous()
-        return dfblock_cuda(nhwc, g0, b0, g1, b1, upsample).permute(0, 3, 1, 2)
+        return dfblock_cuda(nhwc, g0, b0, g1, b1, upsample,
+                            size).permute(0, 3, 1, 2)
 
 
 def add_upsampled(x: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
@@ -108,6 +111,16 @@ def add_upsampled(x: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
     out = x.permute(0, 2, 3, 1).contiguous()
     out.view(b, h, 2, w, 2, c).add_(
         low.permute(0, 2, 3, 1).reshape(b, h, 1, w, 1, c))
+    return out.permute(0, 3, 1, 2)
+
+
+def add_resized(x: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """x + nearest_resize(low) to x's size, in place on x's channels_last
+    storage (a copy first where x is not channels_last): the resize that
+    is not 2x, through F.interpolate's own index rule."""
+    out = x.permute(0, 2, 3, 1).contiguous()
+    out.add_(F.interpolate(low, size=tuple(x.shape[-2:]),
+                           mode="nearest").permute(0, 2, 3, 1))
     return out.permute(0, 3, 1, 2)
 
 
@@ -125,12 +138,15 @@ def conv_unbiased(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype):
 
 class GBlock(nn.Module):
     """DF-GAN's G_Block with its upsample: (B, in, H, W) -> (B, out, 2H,
-    2W)."""
+    2W); with ``size``, GALIP's, whose nearest resize goes to (size, size)
+    instead (the 2x path where that is 2H)."""
 
     def __init__(self, cond_dim: int, in_ch: int, out_ch: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 size: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
+        self.size = size
         self.learnable_sc = in_ch != out_ch
         self.c1 = nn.Conv2d(in_ch, out_ch, 3, 1, 1)
         self.c2 = nn.Conv2d(out_ch, out_ch, 3, 1, 1)
@@ -141,9 +157,12 @@ class GBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """c1's bias goes into fuse2's first affine; c2's and c_sc's are
-        added to the shortcut before its upsample."""
+        added to the shortcut before its upsample (or resize)."""
         with span("attngan.gblock"):
-            h, bias = conv_unbiased(self.fuse1(x, cond, upsample=True),
+            two_x = self.size is None or self.size == 2 * x.shape[-1]
+            up = (dict(upsample=True) if two_x
+                  else dict(size=(self.size, self.size)))
+            h, bias = conv_unbiased(self.fuse1(x, cond, **up),
                                     self.c1, self.dtype)
             h, bias = conv_unbiased(self.fuse2(h, cond, shift=bias), self.c2,
                                     self.dtype)
@@ -154,7 +173,7 @@ class GBlock(nn.Module):
                     bias = sc_bias if bias is None else bias + sc_bias
             if bias is not None:
                 shortcut = shortcut + bias.to(shortcut.dtype).view(1, -1, 1, 1)
-            return add_upsampled(h, shortcut)
+            return (add_upsampled if two_x else add_resized)(h, shortcut)
 
 
 class DFGenerator(nn.Module):

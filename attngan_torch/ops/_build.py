@@ -29,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("word_attention", "upblock", "damsm_similarity", "dfblock",
-           "bn_epilogue", "bilstm")
+           "bn_epilogue", "bilstm", "clip_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # storage types the kernels take, as the C entry points number them

@@ -86,6 +86,9 @@ UNTRAINED = {
     "dmgan": ("the step builds AttnGAN's generator (models/generator.py), "
               "and DM-GAN's memory read on the card is a kernel with no "
               "backward"),
+    "galip": ("GALIP trains against a discriminator built on CLIP's frozen "
+              "visual tower, with its own objective, which the port does "
+              "not have; and K7 and K11 have no backward"),
 }
 
 

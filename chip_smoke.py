@@ -89,6 +89,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    K2's cluster form each launched 2, 2 and 0 times by the host, the
    replay's 2 each by torch.profiler's count), img/s over 4 windows of 10
    calls and the memory reserved;
+   4g. GALIP (``galip_phase``; CLIP ViT-B/32, nf 64, imsize 224, bf16,
+   batch 64): K11 (``clip_attention_cuda``) against its plain version at
+   the text's (77 tokens, 8 heads, causal) and the bridge's (51 and 50,
+   12 heads) shapes, timed (L2 cold) beside its bound (bytes at 3.35 TB/s
+   or operations at 989 TFLOP/s, the larger), its plain version and
+   ``F.scaled_dot_product_attention`` on the same q, k, v (``sdpa_ms``,
+   K11's ``library_ms`` in the ``kernels`` line), each weighted by its
+   launches a call; K7's resize form at 7 -> 8 (512 channels) and
+   64 -> 224 (128) against F.interpolate followed by K7 (``chain_ms``);
+   K7's 2x form at DF-GAN's twelve layers (phase 4c's total), to show
+   that the resize form left it as it was; the GALIP
+   sampler's eager call, capture and replay (K11 launched 24, 24 and 0
+   times and K7 18, 18 and 0 times by the host, the replay's by
+   torch.profiler's count), img/s over 4 windows of 10 calls and the
+   memory reserved;
 5. the DAMSM pretrain step (DamsmConfig defaults: Inception-v3 trunk in
    bf16 with seeded random weights, emb 256, vocab 1000, 8 words): one step
    at batch 64 and one at batch 192, each with the launch counters reset
@@ -265,7 +280,8 @@ TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores; 3xTF32 does 3 per fp32 product
 NO_SPILL = ("word_attention_stream_kernel", "memread_stream_kernel",
             "upblock_resident_kernel", "upblock_cluster_kernel",
             "damsm_bwd_tc_kernel", "damsm_fwd_tc_kernel",
-            "bn_epilogue_kernel", "bilstm_kernel")
+            "bn_epilogue_kernel", "bilstm_kernel", "clip_attn_kernel",
+            "dfblock_resize_kernel")
 L2_BYTES = 50 * 2 ** 20
 # device_timeit's seconds a call may read at most this share under the
 # CUDA events around the same timed loop
@@ -4521,6 +4537,162 @@ def memread_phase(torch, card_name: str) -> tuple:
     return {"memory_read": total}, {"memory_read": rises[1]}
 
 
+# phase 4g: the galip-serve-b64 cell's widths (CLIP ViT-B/32, nf 64,
+# imsize 224, captions of 8-30 ids in CLIP's context of 77, batch 64)
+GALIP_VOCAB, GALIP_CTX = 49408, 77
+# (L, heads, causal, launches a call) of K11: the text's 12 layers, the
+# bridge's layer 0 and 9-11 at 50 tokens and 1-8 at 51
+GALIP_ATTENTION = ((77, 8, True, 12), (51, 12, False, 8), (50, 12, False, 4))
+
+
+def galip_phase(torch, card_name: str) -> tuple:
+    """Phase 4g. Returns ({"clip_attention": totals over the 24 launches
+    of a call in bf16}, {"clip_attention": launches in the sampler's
+    capture call})."""
+    import torch.nn.functional as F
+
+    from attngan_torch.core.config import GanConfig
+    from attngan_torch.infer.sampler import InferState, Sampler
+    from attngan_torch.models.clip import clip_layout
+    from attngan_torch.ops.cuda_clip_attention import (
+        clip_attention,
+        clip_attention_cuda,
+    )
+    from attngan_torch.ops.cuda_dfblock import dfblock, dfblock_cuda
+
+    g = torch.Generator("cuda").manual_seed(27)
+    total = dict(ms=0.0, plain_ms=0.0, sdpa_ms=0.0, bound_ms=0.0,
+                 bytes_ms=0.0, flops_ms=0.0, max_abs_err=0.0, form="cta")
+    for n, heads, causal, per_call in GALIP_ATTENTION:
+        qkv = (2 * torch.randn((BATCH, n, 3 * heads * 64), generator=g,
+                               device="cuda")).to(torch.bfloat16)
+        before = clip_attention_cuda.launches
+        got = clip_attention_cuda(qkv, heads, causal)
+        torch.cuda.synchronize()
+        fail_unless(clip_attention_cuda.launches == before + 1,
+                    f"clip_attention counted "
+                    f"{clip_attention_cuda.launches - before}")
+        want = clip_attention(qkv, heads, causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL["bfloat16"])
+        err = float((got.float() - want.float()).abs().max())
+        q, k, v = (t.reshape(BATCH, n, heads, 64).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal).transpose(1, 2).reshape(
+                    BATCH, n, heads * 64)
+        sdpa_err = float((sdpa().float() - want.float()).abs().max())
+        moved = nbytes(qkv, got)
+        pairs = n * (n + 1) // 2 if causal else n * n
+        flops = 4 * BATCH * heads * 64 * pairs
+        bound = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        ms = time_ms(lambda: clip_attention_cuda(qkv, heads, causal))
+        plain_ms = time_ms(lambda: clip_attention(qkv, heads, causal))
+        sdpa_ms = time_ms(sdpa)
+        print(json.dumps({
+            "phase": "galip", "step": "k11", "shape": [BATCH, n, heads],
+            "causal": causal, "per_call": per_call, "max_abs_err": err,
+            "sdpa_max_abs_err": sdpa_err, "ms": ms, "plain_ms": plain_ms,
+            "sdpa_ms": sdpa_ms, "bound_ms": bound,
+            "roofline_pct": 100 * bound / ms, "bytes": moved, "flops": flops,
+            "card": card_name}), flush=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("sdpa_ms", sdpa_ms), ("bound_ms", bound),
+                         ("bytes_ms", moved / HBM_BYTES_PER_S * 1e3),
+                         ("flops_ms", flops / BF16_FLOPS_PER_S * 1e3)):
+            total[key] += per_call * val
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+
+    # K7's resize form at the cell's two resizes, against F.interpolate
+    # and K7's plain form
+    for hw, size, c in ((7, 8, 512), (64, 224, 128)):
+        x = (2 * torch.randn((BATCH, hw, hw, c), generator=g,
+                             device="cuda")).to(torch.bfloat16)
+        consts = [torch.randn((BATCH, c), generator=g, device="cuda")
+                  for _ in range(4)]
+
+        def chain():
+            up = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
+                               mode="nearest")
+            return dfblock_cuda(up.permute(0, 2, 3, 1).contiguous(), *consts)
+        got = dfblock_cuda(x, *consts, size=(size, size))
+        torch.testing.assert_close(got.float(), chain().float(),
+                                   **TOL["bfloat16"])
+        torch.testing.assert_close(
+            got.float(), dfblock(x, *consts, size=(size, size)).float(),
+            **TOL["bfloat16"])
+        moved = nbytes(x, got, *consts)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: dfblock_cuda(x, *consts, size=(size, size)))
+        chain_ms = time_ms(chain)
+        print(json.dumps({
+            "phase": "galip", "step": "k7_resize", "shape": [BATCH, hw, hw, c],
+            "size": size, "ms": ms, "chain_ms": chain_ms, "bound_ms": bound,
+            "roofline_pct": 100 * bound / ms, "bytes": moved,
+            "card": card_name}), flush=True)
+
+    # K7's 2x form at DF-GAN's twelve layers (phase 4c's 0.9028 ms)
+    ms_2x = 0.0
+    for b, h, w, c, up in dfgan_layers(BATCH):
+        x = (2 * torch.randn((b, h, w, c), generator=g, device="cuda")
+             ).to(torch.bfloat16)
+        consts = [torch.randn((b, c), generator=g, device="cuda")
+                  for _ in range(4)]
+        ms_2x += time_ms(lambda: dfblock_cuda(x, *consts, upsample=up))
+    print(json.dumps({"phase": "galip", "step": "k7_dfgan_layers",
+                      "ms": ms_2x, "card": card_name}), flush=True)
+
+    # the serving path at batch 64: eager call, capture, replays
+    cfg = GanConfig(generator="galip", gf_dim=64, emb_dim=512,
+                    seq_len=GALIP_CTX)
+    torch.manual_seed(0)
+    sampler = Sampler(InferState(cfg, GALIP_VOCAB), device="cuda")
+    lengths = torch.randint(8, 31, (BATCH,), generator=g, device="cuda").cpu()
+    ids = torch.randint(1, GALIP_VOCAB - 2, (BATCH, 30), generator=g,
+                        device="cuda")
+    tokens = clip_layout(ids, lengths, GALIP_CTX, GALIP_VOCAB)
+    noise = torch.randn((BATCH, cfg.z_dim), generator=g, device="cuda")
+    rises, images = [], []
+    for _ in range(3):                              # eager, capture, replay
+        before = clip_attention_cuda.launches, dfblock_cuda.launches
+        images.append(sampler.generate_from_tokens(tokens, lengths,
+                                                   noise).clone())
+        torch.cuda.synchronize()
+        rises.append((clip_attention_cuda.launches - before[0],
+                      dfblock_cuda.launches - before[1]))
+    fail_unless(rises == [(24, 18), (24, 18), (0, 0)],
+                f"GALIP K11 / K7 launches {rises}, expected 24 / 18 on the "
+                f"eager call and the capture, none on a replay")
+    paths = (sampler.eager_calls, sampler.captures, sampler.replays)
+    fail_unless(paths == (1, 1, 2), f"GALIP eager calls, captures, "
+                f"replays {paths}, expected (1, 1, 2)")
+    for got in images[1:]:
+        torch.testing.assert_close(got, images[0], **TOL["bfloat16"])
+    windows = []          # timed before the profiler count below
+    for _ in range(4):
+        start = time.perf_counter()
+        for _ in range(10):
+            sampler.generate_from_tokens(tokens, lengths, noise)
+        torch.cuda.synchronize()
+        windows.append(10 * BATCH / (time.perf_counter() - start))
+    replayed = device_kernel_counts(
+        torch, lambda: sampler.generate_from_tokens(tokens, lengths, noise))
+    k11 = sum(n for k, n in replayed.items() if "clip_attn" in k)
+    k7 = sum(n for k, n in replayed.items() if "dfblock" in k)
+    fail_unless((k11, k7) == (24, 18), f"a GALIP replay ran K11 {k11} and "
+                f"K7 {k7} times")
+    print(json.dumps({
+        "phase": "galip", "step": "serve", "batch": BATCH,
+        "launches": rises, "paths": paths, "replay_k11": k11,
+        "replay_k7": k7, "replay_kernels": sum(replayed.values()),
+        "img_per_s": statistics.median(windows), "windows": windows,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "totals": total, "card": card_name}), flush=True)
+    return {"clip_attention": total}, {"clip_attention": rises[1][0]}
+
+
 def main() -> int:
     import torch
 
@@ -4581,6 +4753,9 @@ def main() -> int:
     memread_totals, memread_launches = memread_phase(torch, card_name)
     totals.update(memread_totals)
     lap("memread")
+    galip_totals, galip_launches = galip_phase(torch, card_name)
+    totals.update(galip_totals)
+    lap("galip")
     damsm_launches, trainer, state, batch = pretrain(torch, card_name)
     pretrain_throughput(torch, trainer, state, batch, card_name)
     if "--profile" in sys.argv[1:]:
@@ -4618,7 +4793,8 @@ def main() -> int:
     # captioner, pretrain options, data parallel (every rank's), side
     # tiers, the last modules (MFU and the tools)
     for counted in (dfgan_launches, bn_launches, bilstm_launches,
-                    memread_launches, damsm_launches, gan_launches, loop_launches,
+                    memread_launches, galip_launches, damsm_launches,
+                    gan_launches, loop_launches,
                     captioner_launches, options_launches, dp_launches,
                     side_launches, last_launches):
         for name, n in counted.items():
@@ -4644,6 +4820,8 @@ def main() -> int:
         "bilstm": ("attngan_torch/csrc/bilstm.cu", None),
         # K1's memory form: DM-GAN's (the JAX package has no DM-GAN)
         "memory_read": ("attngan_torch/csrc/word_attention.cu", None),
+        # K11: GALIP's CLIP attention (the JAX package has no GALIP)
+        "clip_attention": ("attngan_torch/csrc/clip_attention.cu", None),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -4656,9 +4834,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["flops_ms"]
             else "operations",
-            "library_ms": None,
+            # the one library call that computes K11's function
+            "library_ms": t.get("sdpa_ms"),
             **{k: t[k] for k in ("chain_ms", "form", "tc_bound_ms",
-                                 "encoder_ms", "cudnn_ms") if k in t}})
+                                 "encoder_ms", "cudnn_ms")
+               if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name, flush=True)
     print(json.dumps({"ok": True, "device": {
